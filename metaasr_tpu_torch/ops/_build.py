@@ -1,0 +1,88 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
+library, ``_build/lib<name>_<hash>.so`` inside the package directory
+(listed in ``.gitignore``). The hash covers the source and the flags, so an
+edited source is rebuilt and a stale library is never loaded. Sources build
+at first use, or all at once and in parallel through :func:`build_all`.
+Nothing is built or imported when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SOURCES = ("fbank",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together. Returns {name: compiler output (ptxas register/smem report)}
+    for the sources compiled now; raises on the first failure."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        lib = library_path(name)
+        if os.path.exists(lib):
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    logs, failed = {}, []
+    for name, (proc, tmp, lib) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (rc {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)  # atomic: readers never see half a file
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = ctypes.CDLL(library_path(name))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,284 @@
+"""Serving bundles: read them and transcribe (counterpart of the reader side
+of ``metaasr_tpu/serve/export.py``).
+
+A bundle directory holds ``params.npz`` (flat ``a/b/c`` keys; bf16 leaves
+stored as uint16 bit patterns listed under ``__bf16_keys__``),
+``tokenizer.json`` and ``meta.json``. The JAX package also writes one
+StableHLO program per bucket (``*.jexp``); the port ignores those and runs
+its own modules, the fbank kernel included. ``meta.json`` does not record
+model dims, dtype, CMVN mode or most beam options, so
+:class:`ServingDecoder` takes the run's ``Config`` for those.
+
+:func:`write_bundle` writes the same non-program files, so a bundle the
+port writes loads in either package's reader.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import threading
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from metaasr_tpu_torch.data.tokenizer import _BaseTokenizer
+from metaasr_tpu_torch.decode.beam_search import (
+    LM_FUSION_TODO,
+    BeamSearchConfig,
+    beam_search_transformer,
+)
+from metaasr_tpu_torch.task import ASRTask
+from metaasr_tpu_torch.weights import flatten_tree, flax_to_state_dict
+
+BUNDLE_VERSION = 2
+COMPATIBLE_BUNDLE_VERSIONS = (1, 2)
+
+
+def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def _f32_to_bf16_bits(a: np.ndarray) -> np.ndarray:
+    """Round to nearest even, as a cast to bfloat16 does."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def round_to_bf16(a: np.ndarray) -> np.ndarray:
+    """fp32 array of the bf16 values nearest to ``a``."""
+    return _bf16_bits_to_f32(_f32_to_bf16_bits(a))
+
+
+def load_bundle_params(path: str) -> dict:
+    """params.npz (or any flat ``a/b/c`` params npz, such as the JAX
+    package's ``save_params_npz`` output) -> nested dict of numpy arrays;
+    bf16 leaves come back as float32 arrays holding the bf16 values."""
+    out: dict = {}
+    with np.load(path) as z:
+        bf16 = set(np.asarray(z["__bf16_keys__"]).tolist()) \
+            if "__bf16_keys__" in z.files else set()
+        for key in z.files:
+            if key == "__bf16_keys__":
+                continue
+            a = np.asarray(z[key])
+            if key in bf16:
+                a = _bf16_bits_to_f32(a)
+            node = out
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = a
+    return out
+
+
+def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
+                 buckets: Sequence[tuple[int, int]],
+                 weights_dtype: str = "float32", mode: str = "beam") -> dict:
+    """Write params.npz, tokenizer.json and meta.json for a Flax-layout
+    params tree (no programs: ``files`` is empty). Returns the manifest."""
+    if weights_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"weights_dtype must be float32 or bfloat16, "
+                         f"got {weights_dtype!r}")
+    os.makedirs(out_dir, exist_ok=True)
+    arrays, bf16_keys = {}, []
+    for key, a in flatten_tree(params).items():
+        if weights_dtype == "bfloat16" and a.dtype.kind == "f":
+            a = _f32_to_bf16_bits(a)
+            bf16_keys.append(key)
+        arrays[key] = a
+    arrays["__bf16_keys__"] = np.asarray(bf16_keys, dtype=np.str_)
+    np.savez(os.path.join(out_dir, "params.npz"), **arrays)
+    tokenizer.save(os.path.join(out_dir, "tokenizer.json"))
+    t = cfg.train
+    manifest = {
+        "version": BUNDLE_VERSION,
+        "buckets": [list(b) for b in buckets],
+        "platforms": [],
+        "from_feats": False,
+        "mode": mode,
+        "packed": True,
+        "weights_dtype": weights_dtype,
+        "files": {},
+        "vocab_kind": cfg.data.vocab,
+        "vocab_size": tokenizer.vocab_size,
+        "sos_eos_id": tokenizer.sos_eos_id,
+        "sample_rate": cfg.frontend.sample_rate,
+        "num_mel_bins": cfg.frontend.num_mel_bins,
+        "has_lm": False,
+        "beam": {"beam_size": t.beam_size, "max_len": cfg.data.max_tokens,
+                 "ctc_weight": t.decode_ctc_weight, "lm_weight": 0.0},
+    }
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return manifest
+
+
+class ServingDecoder:
+    """Load a bundle and transcribe on one device.
+
+    ``transcribe`` pads each request to the smallest bucket that fits,
+    runs fbank (K1) -> CMVN -> encoder -> CTC head -> joint beam search
+    (or greedy CTC for a greedy bundle) and detokenizes. ``params`` hot-swaps
+    an adapted Flax-layout tree; the converted model is cached for the last
+    tree object passed.
+    """
+
+    def __init__(self, bundle_dir: str, cfg, device=None):
+        with open(os.path.join(bundle_dir, "meta.json")) as f:
+            self.meta = json.load(f)
+        if self.meta["version"] not in COMPATIBLE_BUNDLE_VERSIONS:
+            raise ValueError(
+                f"bundle version {self.meta['version']} not in "
+                f"{COMPATIBLE_BUNDLE_VERSIONS}")
+        beam = self.meta["beam"]
+        if self.meta["has_lm"] or beam.get("lm_weight", 0.0) != 0.0:
+            raise NotImplementedError(LM_FUSION_TODO)
+        self.tokenizer = _BaseTokenizer.load(
+            os.path.join(bundle_dir, "tokenizer.json"))
+        cfg = copy.deepcopy(cfg)
+        cfg.model.vocab_size = self.meta["vocab_size"]
+        cfg.frontend.num_mel_bins = self.meta["num_mel_bins"]
+        cfg.frontend.sample_rate = self.meta["sample_rate"]
+        self.cfg = cfg
+        self.task = ASRTask(cfg, self.meta["sos_eos_id"], device=device)
+        self.device = self.task.device
+        self.weights_dtype = self.meta.get("weights_dtype", "float32")
+        self.from_feats = self.meta["from_feats"]
+        self.mode = self.meta["mode"]
+        t = cfg.train
+        self.beam_cfg = BeamSearchConfig(
+            beam_size=beam["beam_size"], max_len=beam["max_len"],
+            ctc_weight=beam["ctc_weight"], length_penalty=t.length_penalty,
+            ctc_candidates=t.ctc_candidates,
+            normalize_final=t.normalize_final,
+            coverage_weight=t.coverage_weight, coverage_tau=t.coverage_tau,
+            min_len=t.beam_min_len)
+        self.buckets = sorted(tuple(int(v) for v in b)
+                              for b in self.meta["buckets"])
+        self.model = self._build_model(load_bundle_params(
+            os.path.join(bundle_dir, "params.npz")))
+        self._swap_cache = None
+        self._swap_lock = threading.Lock()
+
+    def _build_model(self, tree):
+        sd = flax_to_state_dict(tree)
+        if self.weights_dtype == "bfloat16":
+            # the bundle's program takes bf16 weights: round hot-swapped
+            # fp32 trees the same way (a no-op for the bundle's own leaves)
+            sd = {k: torch.from_numpy(round_to_bf16(v.numpy()))
+                  for k, v in sd.items()}
+        model = self.task.build_model()
+        model.load_state_dict(sd)
+        return model
+
+    def _pick_bucket(self, n: int, width: int):
+        fits = [b for b in self.buckets if b[0] >= n and b[1] >= width]
+        if not fits:
+            raise ValueError(
+                f"request ({n} utts, width {width}) exceeds every exported "
+                f"bucket {self.buckets}")
+        return min(fits, key=lambda b: (b[0] * b[1], b))
+
+    def _resolve_params(self, params):
+        """Model for a caller's tree. The single-entry cache keys on object
+        identity: treat a tree as immutable once passed."""
+        if params is None:
+            return self.model
+        with self._swap_lock:
+            if self._swap_cache is not None and self._swap_cache[0] is params:
+                return self._swap_cache[1]
+            model = self._build_model(params)
+            self._swap_cache = (params, model)  # holds params: id stays live
+            return model
+
+    def transcribe(self, xs: Sequence[np.ndarray], params: Any = None,
+                   nbest: int = 1) -> list[dict]:
+        """xs: 1-D float32 waveforms (audio mode) or [T, D] features (feats
+        mode). Returns one {"text", "score"} (+ "nbest") dict per input."""
+        out, n = self._dispatch(xs, params)
+        return self._read(out, n, nbest)
+
+    def transcribe_files(self, paths: Sequence[str], params: Any = None,
+                         nbest: int = 1) -> list[dict]:
+        if self.from_feats:
+            raise ValueError("transcribe_files needs an audio-mode bundle "
+                             "(this one was exported from_feats=True)")
+        from metaasr_tpu_torch.data.audio_io import load_wav
+
+        rate = self.meta["sample_rate"]
+        return self.transcribe([load_wav(p, target_rate=rate)
+                                for p in paths], params=params, nbest=nbest)
+
+    def transcribe_stream(self, requests, params: Any = None,
+                          nbest: int = 1):
+        """``requests``: iterable of wave lists. Every batch is dispatched
+        before any result is read; yields one result list per batch, in
+        order."""
+        pending = [self._dispatch(xs, params) for xs in requests]
+        for out, n in pending:
+            yield self._read(out, n, nbest)
+
+    def _stage(self, xs, params):
+        """Pad one request to its bucket and copy it to the device."""
+        n = len(xs)
+        widths = [int(np.shape(x)[0]) for x in xs]
+        bsz, width = self._pick_bucket(n, max(widths))
+        if self.from_feats:
+            x = np.zeros((bsz, width, self.meta["num_mel_bins"]), np.float32)
+        else:
+            x = np.zeros((bsz, width), np.float32)
+        for i, item in enumerate(xs):
+            x[i, : widths[i]] = np.asarray(item, np.float32)
+        lens = np.asarray(widths + [widths[-1]] * (bsz - n), np.int32)
+        # pad rows repeat the last real utterance (never a zero-length row:
+        # framing needs one full window); _read drops their outputs
+        for j in range(n, bsz):
+            x[j] = x[n - 1]
+        model = self._resolve_params(params)
+        return ((bsz, width), model,
+                torch.from_numpy(x).to(self.device),
+                torch.from_numpy(lens).to(self.device), n)
+
+    def _dispatch_staged(self, staged):
+        """Run the decode on staged inputs -> (outputs on the device, n)."""
+        _, model, x, lens, n = staged
+        with torch.inference_mode():
+            if self.from_feats:
+                feats, feat_lens = x, lens
+            else:
+                feats, feat_lens = self.task.features(x, lens)
+            if self.mode == "greedy":
+                packed, out_lens = self.task._greedy_from_feats(
+                    model, feats, feat_lens)
+                out = {"tokens": packed[:, None, :],
+                       "lengths": out_lens[:, None],
+                       "scores": torch.zeros_like(out_lens,
+                                                  dtype=torch.float32)[:, None]}
+            else:
+                out = beam_search_transformer(model, feats, feat_lens,
+                                              self.task.sos_eos_id,
+                                              self.beam_cfg)
+        return out, n
+
+    def _dispatch(self, xs, params):
+        return self._dispatch_staged(self._stage(xs, params))
+
+    def _read(self, out, n: int, nbest: int):
+        toks = out["tokens"].cpu().numpy()
+        lengths = out["lengths"].cpu().numpy()
+        scores = out["scores"].float().cpu().numpy()
+        results = []
+        k = min(max(1, nbest), toks.shape[1])
+        for i in range(n):
+            r = {"text": self.tokenizer.decode(toks[i, 0, : lengths[i, 0]]),
+                 "score": float(scores[i, 0])}
+            if k > 1:
+                r["nbest"] = [
+                    {"hyp": self.tokenizer.decode(toks[i, j, : lengths[i, j]]),
+                     "score": float(scores[i, j])} for j in range(k)]
+            results.append(r)
+        return results
+

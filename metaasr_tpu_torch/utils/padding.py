@@ -1,0 +1,22 @@
+"""Padding / masking utilities (counterpart of ``metaasr_tpu/utils/padding.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def make_non_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """[B] int lengths -> [B, max_len] bool mask, True on valid positions."""
+    pos = torch.arange(max_len, device=lengths.device)
+    return pos[None, :] < lengths.to(torch.int64)[:, None]
+
+
+def subsampled_lengths(lengths: torch.Tensor, factor: int = 4) -> torch.Tensor:
+    """Lengths through stacked stride-2 kernel-3 VALID convs:
+    L -> floor((L - 1) / 2) per factor of 2, floored at 1."""
+    out = lengths.to(torch.int64)
+    f = factor
+    while f > 1:
+        out = torch.div(out - 1, 2, rounding_mode="floor")
+        f //= 2
+    return torch.clamp(out, min=1)

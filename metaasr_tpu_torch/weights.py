@@ -1,0 +1,164 @@
+"""Flax parameter trees <-> the port's ``state_dict``.
+
+The JAX package keeps parameters as a nested dict (``encoder/layer_3/
+self_attn/qkv/kernel``); bundles and checkpoints store it flat with
+``/``-joined keys. The port's modules use PyTorch layouts, so a leaf is
+renamed and re-laid-out on the way in:
+
+============================  ===========================  =================
+Flax leaf                     port key                     layout
+============================  ===========================  =================
+``.../layer_N/...``           ``.../layers.N/...``
+``ff/Dense_0``, ``Dense_1``   ``ff.fc1``, ``ff.fc2``
+Dense ``kernel [in, out]``    ``weight [out, in]``         transpose
+qkv ``kernel [D, 3, H, Dh]``  ``weight [3D, D]``           flatten (3, H, Dh)
+q/k/v ``kernel [D, H, Dh]``   ``weight [D, D]``            flatten (H, Dh)
+attn out ``kernel [H, Dh, D]`` ``weight [D, D]``           flatten (H, Dh)
+Conv ``kernel`` HWIO          ``weight`` OIHW              permute
+any ``bias``                  ``bias``                     flatten
+LayerNorm ``scale``           ``weight``
+Embed ``embedding``           ``weight``
+============================  ===========================  =================
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+_RENAME = {"Dense_0": "fc1", "Dense_1": "fc2"}
+_RENAME_BACK = {v: k for k, v in _RENAME.items()}
+
+
+def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested dict (or an already flat ``a/b/c`` dict) -> flat dict of
+    float32/int numpy arrays. Leaves may be numpy arrays, framework arrays
+    that support ``np.asarray``, or bf16 arrays of a foreign numpy dtype."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, key))
+        else:
+            a = np.asarray(v)
+            if a.dtype.kind not in "fiub":  # e.g. a bfloat16 extension dtype
+                a = a.astype(np.float32)
+            out[key] = a
+    return out
+
+
+def unflatten(flat: dict[str, np.ndarray]) -> dict:
+    out: dict = {}
+    for key, a in flat.items():
+        node = out
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = a
+    return out
+
+
+def _port_key(parts: list[str]) -> str:
+    names = []
+    for p in parts[:-1]:
+        m = re.fullmatch(r"layer_(\d+)", p)
+        names.append(f"layers.{m.group(1)}" if m else _RENAME.get(p, p))
+    leaf = parts[-1]
+    names.append("bias" if leaf == "bias" else "weight")
+    return ".".join(names)
+
+
+def _to_torch_layout(module: str, leaf: str, a: np.ndarray) -> np.ndarray:
+    if leaf in ("scale", "embedding"):
+        return a
+    if leaf == "bias":
+        return a.reshape(-1)
+    if module.startswith("conv"):
+        return a.transpose(3, 2, 0, 1)
+    if module == "out" and a.ndim == 3:          # attention out [H, Dh, D]
+        return a.reshape(-1, a.shape[-1]).T
+    return a.reshape(a.shape[0], -1).T
+
+
+def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
+    """Flax tree (nested or flat) -> the port's ``state_dict`` (fp32)."""
+    sd = {}
+    for key, a in flatten_tree(tree).items():
+        parts = key.split("/")
+        module = parts[-2] if len(parts) > 1 else ""
+        w = _to_torch_layout(module, parts[-1], a)
+        sd[_port_key(parts)] = torch.tensor(w, dtype=torch.float32)
+    return sd
+
+
+def state_dict_to_flax(sd: dict[str, torch.Tensor], num_heads: int) -> dict:
+    """Inverse of :func:`flax_to_state_dict` (nested dict of fp32 numpy)."""
+    flat = {}
+    for key, t in sd.items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        names = key.split(".")
+        module, leaf = names[-2], names[-1]
+        parts = []
+        i = 0
+        while i < len(names) - 1:
+            if names[i] == "layers":
+                parts.append(f"layer_{names[i + 1]}")
+                i += 2
+            else:
+                parts.append(_RENAME_BACK.get(names[i], names[i]))
+                i += 1
+        if module.startswith("conv"):
+            if leaf == "bias":
+                flat["/".join(parts + ["bias"])] = a
+            else:
+                flat["/".join(parts + ["kernel"])] = np.ascontiguousarray(
+                    a.transpose(2, 3, 1, 0))
+            continue
+        if module.startswith("norm") or module == "final_norm":
+            flat["/".join(parts + ["scale" if leaf == "weight" else "bias"])] = a
+            continue
+        if module == "embed":
+            flat["/".join(parts + ["embedding"])] = a
+            continue
+        if leaf == "bias":
+            if module == "qkv":
+                a = a.reshape(3, num_heads, -1)
+            elif module in ("q", "k", "v"):
+                a = a.reshape(num_heads, -1)
+            flat["/".join(parts + ["bias"])] = a
+            continue
+        d_in = a.shape[1]
+        if module == "qkv":
+            k = a.T.reshape(d_in, 3, num_heads, -1)
+        elif module in ("q", "k", "v"):
+            k = a.T.reshape(d_in, num_heads, -1)
+        elif module == "out":
+            k = a.T.reshape(num_heads, -1, a.shape[0])
+        else:
+            k = a.T
+        flat["/".join(parts + ["kernel"])] = np.ascontiguousarray(k)
+    return unflatten(flat)
+
+
+def random_state_dict(model: torch.nn.Module, seed: int) -> dict[str, torch.Tensor]:
+    """Seeded random weights for ``model`` (numpy RNG, so the values do not
+    depend on the torch build): matrices ~ N(0, 1/fan_in), biases ~
+    N(0, 0.02^2), LayerNorm scales 1, embeddings ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        names = key.split(".")
+        if names[-2].startswith("norm") or names[-2] == "final_norm":
+            a = np.ones(shape) if names[-1] == "weight" else np.zeros(shape)
+        elif names[-2] == "embed":
+            a = rng.standard_normal(shape)
+        elif names[-1] == "bias":
+            a = 0.02 * rng.standard_normal(shape)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            a = rng.standard_normal(shape) / np.sqrt(fan_in)
+        sd[key] = torch.from_numpy(a.astype(np.float32))
+    return sd
