@@ -24,16 +24,36 @@ Phases, one JSON line each; any failure exits non-zero:
              request.
 4. parity  — a tiny fp32 model served on cuda and on cpu from one bundle
              gives identical texts and scores within 1e-4.
+5. ctc_kernel — K2 (CTC alpha/beta) against its plain PyTorch version at
+             [B, T, U, V] = [16, 99, 32, 30] (tasks fused), [4, 99, 32, 30]
+             (per task), [3, 50, 7, 12] and [8, 1000, 20, 30], with ragged
+             T, an empty label and an infeasible row: loss within
+             atol = rtol = 1e-5, gradient l2rel <= 1.9e-3, the infeasible
+             row's loss and gradient 0 through the autograd Function;
+             CUDA-event medians of K2, its plain version and
+             F.ctc_loss forward + backward at the first two shapes.
+6. meta_step — the config3-width FOMAML meta-step (maml_grads + Adam/Noam,
+             clip 5) on bench.py's workload, 4 tasks x (4 + 4) and
+             4 x (16 + 16) utterances of 64,000 samples, 32 tokens, 3 inner
+             steps, bf16 grad_dtype, SpecAugment on: 2 warm-up, 5 timed and
+             1 profiled step per shape; every loss finite, and exactly
+             2*M K1 and M*(inner_steps+1) K2 launches per step.
+7. train_entry — an 8-accent synthetic corpus; MetaASRTrainer.meta_train
+             (through the CLI's make_trainer) for 3 steps at config3 width,
+             checkpoints written and restored, meta_adapt on the held-out
+             accent, the adapted npz hot-swapped into a ServingDecoder that
+             serves one utterance; exact launch counts.
 
-Then a ``{"kernels": [...]}`` line (time, bound, launches per kernel) and
-the last line ``{"ok": true, "device": {...}}``. TF32 is off throughout
-(the reference pins fp32 HIGHEST in the front-end).
+Then a ``{"kernels": [...]}`` line (time, bound, launches on the main
+paths per kernel) and the last line ``{"ok": true, "device": {...}}``.
+TF32 is off throughout (the reference pins fp32 HIGHEST in the front-end).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -42,6 +62,7 @@ import time
 
 import numpy as np
 
+DEVICE = "cuda"
 SERVE_BUCKET = (16, 64000)
 CHECK_LENS = [64000, 401, 63999, 560, 48000, 32001, 16000, 60160,
               400, 1234, 55555, 20000, 63840, 8000, 40400, 30000]
@@ -140,6 +161,10 @@ def phase_kernel(torch, peaks):
         lens_exact = lens_exact and got_lens.tolist() == want_lens
         errs[f"{cmvn}{'+norm_var' if nv else ''}"] = float(
             (got - plain).abs().max())
+    # the meta-step's per-task batch: 4 utterances of the same width
+    got4, lens4 = log_mel_fbank(audio[:4], lens[:4], params, "none")
+    plain4 = fbank_kernel.plain_log_mel(audio[:4], lens4, *mats)
+    errs["per_task_4x64000"] = float((got4 - plain4).abs().max())
     max_err = max(errs.values())
     # the float64 numpy oracle on the longest and the 1-frame utterance
     raw, _ = log_mel_fbank(audio, lens, params, "none")
@@ -280,10 +305,7 @@ def phase_serving(torch):
         torch.cuda.synchronize()
         timings.append((name, 1e3 * (time.perf_counter() - t0), res))
     # one more full batch under the profiler: how busy is the device?
-    try:
-        prof = device_busy(torch, lambda: dec.transcribe(waves, nbest=2))
-    except Exception as e:  # the profiler is optional; the run is not
-        prof = (None, None, 0, [f"not measured: {e!r}"])
+    prof = device_busy(torch, lambda: dec.transcribe(waves, nbest=2))
     launches = fused_log_mel.launches
     for (name, _, res), (_, xs) in zip(timings, requests):
         check_results(res, len(xs), tok)
@@ -352,6 +374,298 @@ def phase_parity(torch):
     return out
 
 
+# ---------------------------------------------------------------- K2 ----
+
+CTC_SHAPES = {"fused": (16, 99, 32, 30), "per_task": (4, 99, 32, 30),
+              "odd": (3, 50, 7, 12), "long_t": (8, 1000, 20, 30)}
+CTC_LOSS_TOL = 1e-5      # atol = rtol, tests/test_m3_pallas.py:45
+CTC_GRAD_L2REL = 1.9e-3  # docs/KERNEL_CHECK_TPU.md, T=1000 on the TPU
+
+
+def ctc_inputs(torch, shape, seed):
+    """log-probs [B, T, V] and ragged lens/labels on the card; row 1 has an
+    empty label, the last row is infeasible (T too short for its labels)."""
+    bsz, t_len, u_len, vocab = shape
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((bsz, t_len, vocab)).astype(np.float32)
+    t_lens = rng.integers(max(2 * u_len + 1, t_len // 2), t_len + 1, bsz)
+    t_lens[0] = t_len
+    labels = rng.integers(1, vocab, (bsz, u_len))
+    u_lens = rng.integers(1, u_len + 1, bsz)
+    u_lens[0] = u_len
+    u_lens[1] = 0
+    t_lens[-1], u_lens[-1] = max(1, u_len // 2), u_len
+    lp = torch.log_softmax(torch.from_numpy(logits).to(DEVICE), -1)
+    as_i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(DEVICE)  # noqa: E731
+    return lp, as_i32(t_lens), as_i32(labels), as_i32(u_lens)
+
+
+def phase_ctc_kernel(torch, peaks):
+    import torch.nn.functional as F
+
+    from metaasr_tpu_torch.ops import ctc as ctc_ops
+    from metaasr_tpu_torch.ops import ctc_kernel
+
+    peak_flops, peak_bw = peaks
+    res = {"phase": "ctc_kernel", "loss_tol": "atol=rtol=1e-5",
+           "grad_l2rel_tol": CTC_GRAD_L2REL, "shapes": {}}
+    ok = True
+    for i, (name, shape) in enumerate(CTC_SHAPES.items()):
+        lp, t_lens, labels, u_lens = ctc_inputs(torch, shape, seed=10 + i)
+        z = ctc_ops.extend_labels(labels)
+        logp_z = ctc_ops.gather_emissions(lp, z).contiguous()
+        skip = ctc_ops.skip_bias(z).contiguous()
+        end = (2 * u_lens).contiguous()
+        nll, grad = ctc_kernel.ctc_alpha_beta(logp_z, skip, t_lens, end)
+        p_nll, p_grad = ctc_kernel.plain_ctc_alpha_beta(logp_z, skip, t_lens,
+                                                        end)
+        torch.cuda.synchronize()
+        loss_abs = float((nll - p_nll).abs().max())
+        loss_ok = bool(((nll - p_nll).abs()
+                        <= CTC_LOSS_TOL * (1 + p_nll.abs())).all())
+        l2rel = float(torch.linalg.norm(grad - p_grad)
+                      / torch.linalg.norm(p_grad))
+        # the loss with autograd: the infeasible row is zeroed, gradient too
+        x = lp.detach().clone().requires_grad_(True)
+        loss = ctc_kernel.ctc_loss_kernel(x, t_lens, labels, u_lens)
+        loss.sum().backward()
+        infeasible_zero = (float(loss.detach()[-1]) == 0.0
+                           and float(x.grad[-1].abs().max()) == 0.0)
+        finite = bool(torch.isfinite(loss).all()
+                      and torch.isfinite(x.grad).all())
+        entry = {"shape_btuv": list(shape), "loss_max_abs_diff": loss_abs,
+                 "loss_ok": loss_ok, "grad_l2rel": l2rel,
+                 "grad_max_abs_diff": float((grad - p_grad).abs().max()),
+                 "infeasible_row_zero": infeasible_zero, "finite": finite}
+        ok = ok and loss_ok and l2rel <= CTC_GRAD_L2REL and infeasible_zero \
+            and finite
+        if name in ("per_task", "fused"):
+            bsz, t_len, _, vocab = shape
+            s_len = z.shape[1]
+            entry["ms"] = cuda_median_ms(torch, lambda: ctc_kernel.ctc_alpha_beta(
+                logp_z, skip, t_lens, end))
+            entry["plain_ms"] = cuda_median_ms(
+                torch, lambda: ctc_kernel.plain_ctc_alpha_beta(
+                    logp_z, skip, t_lens, end), runs=10, warmup=2)
+            lp_tbv = lp.transpose(0, 1).contiguous()
+
+            def library():
+                y = lp_tbv.detach().requires_grad_(True)
+                F.ctc_loss(y, labels, t_lens, u_lens, blank=0,
+                           reduction="none", zero_infinity=True).sum().backward()
+
+            entry["library_ms"] = cuda_median_ms(torch, library)
+            elems = bsz * t_len * s_len
+            ops = 16 * elems           # 10 flops + 6 transcendentals
+            nbytes = 4 * (2 * elems + bsz * s_len + 3 * bsz)
+            t_ops, t_bytes = ops / peak_flops, nbytes / peak_bw
+            entry.update(
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                dependent_steps=2 * t_len,
+                us_per_dependent_step=1e3 * entry["ms"] / (2 * t_len))
+        res["shapes"][name] = entry
+    log(res)
+    if not ok:
+        raise SystemExit("K2 disagrees with its plain version")
+    return res
+
+
+# ------------------------------------------------------ training path ----
+
+META_SHAPES = ((4, 4), (4, 16))   # (tasks, shots): bench.py's 4x4, 4x16
+
+
+def config3_train():
+    """configs/config3_fomaml.yaml at full width (its model, meta and
+    optimizer sections), char vocab."""
+    cfg, tok = config3()
+    cfg.specaug.enabled = True
+    m = cfg.meta
+    m.algo, m.grad_dtype, m.inner_lr, m.inner_steps = \
+        "fomaml", "bfloat16", 0.01, 3
+    m.k_support = m.k_query = m.tasks_per_batch = 4
+    m.adapt_steps = 5
+    o = cfg.optimizer
+    o.name, o.lr, o.schedule, o.warmup_steps = "adam", 0.5, "noam", 2000
+    return cfg, tok
+
+
+def bench_meta_batch(torch, m_tasks, k_shot, vocab):
+    """bench.py's workload: audio 0.1 N(0,1) of 64,000 samples, 32 tokens,
+    numpy seed 0."""
+    rng = np.random.default_rng(0)
+
+    def part():
+        return {"audio": (0.1 * rng.standard_normal(
+                    (m_tasks, k_shot, 64000))).astype(np.float32),
+                "audio_lens": np.full((m_tasks, k_shot), 64000, np.int32),
+                "tokens": rng.integers(1, vocab - 1, (m_tasks, k_shot, 32)
+                                       ).astype(np.int32),
+                "token_lens": np.full((m_tasks, k_shot), 32, np.int32)}
+
+    return {s: {k: torch.from_numpy(v).to(DEVICE) for k, v in part().items()}
+            for s in ("support", "query")}
+
+
+def phase_meta_step(torch):
+    from metaasr_tpu_torch.frontend.fbank_kernel import fused_log_mel
+    from metaasr_tpu_torch.meta.maml import fold_in, maml_grads
+    from metaasr_tpu_torch.ops.ctc_kernel import ctc_alpha_beta
+    from metaasr_tpu_torch.task import ASRTask
+    from metaasr_tpu_torch.train.meta_train import algo_config
+    from metaasr_tpu_torch.train.optimizer import apply_updates, make_optimizer
+
+    cfg, tok = config3_train()
+    task = ASRTask(cfg, tok.sos_eos_id, device=DEVICE)
+    grad_fn = maml_grads(task.loss_fn, algo_config(cfg), task.preprocess)
+    opt = make_optimizer(cfg.optimizer, cfg.model.d_model)
+    inner = cfg.meta.inner_steps
+    out = {"phase": "meta_step", "inner_steps": inner,
+           "grad_dtype": cfg.meta.grad_dtype, "specaug": True,
+           "optimizer": "adam, noam lr 0.5 warmup 2000, clip 5.0",
+           "cells": []}
+    warmup, timed = 2, 5
+    for m_tasks, k_shot in META_SHAPES:
+        st = {"params": task.init_params(0)}
+        st["opt"] = opt.init(st["params"])
+        mb = bench_meta_batch(torch, m_tasks, k_shot, tok.vocab_size)
+        losses = []
+
+        def one_step(i):
+            grads, metrics = grad_fn(st["params"], mb, fold_in(0, i))
+            updates, st["opt"] = opt.update(grads, st["opt"], st["params"])
+            st["params"] = apply_updates(st["params"], updates)
+            losses.append(metrics["meta_loss"])
+
+        fused_log_mel.launches = 0
+        ctc_alpha_beta.launches = 0
+        for i in range(warmup):
+            one_step(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(warmup, warmup + timed):
+            t0 = time.perf_counter()
+            one_step(i)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated()
+        prof = device_busy(torch, lambda: one_step(warmup + timed))
+        k1, k2 = fused_log_mel.launches, ctc_alpha_beta.launches
+        steps = warmup + timed + 1
+        want_k1, want_k2 = steps * 2 * m_tasks, steps * m_tasks * (inner + 1)
+        ms = statistics.median(times)
+        loss_vals = [float(x) for x in losses]
+        cell = {"tasks": m_tasks, "shots": k_shot, "steps": steps,
+                "ms_per_step": ms, "ms_per_step_all": times,
+                "unique_utts_per_s": m_tasks * 2 * k_shot / (ms / 1e3),
+                "presentations_per_s":
+                    m_tasks * (k_shot * inner + k_shot) / (ms / 1e3),
+                "peak_mem_gb": peak / 1e9,
+                "profiled_step": {"wall_ms": prof[0],
+                                  "device_busy_ms": prof[1],
+                                  "cuda_kernels": prof[2],
+                                  "top_kernels_ms": prof[3]},
+                "device_busy_share": (None if prof[1] is None
+                                      else prof[1] / ms),
+                "k1_launches": k1, "k1_expected": want_k1,
+                "k2_launches": k2, "k2_expected": want_k2,
+                "meta_loss": loss_vals}
+        out["cells"].append(cell)
+        if not all(math.isfinite(v) for v in loss_vals):
+            log(out)
+            raise SystemExit("non-finite meta loss")
+        if (k1, k2) != (want_k1, want_k2):
+            log(out)
+            raise SystemExit(f"launch counts K1 {k1} (want {want_k1}), "
+                             f"K2 {k2} (want {want_k2})")
+        del st, mb
+        torch.cuda.empty_cache()
+    log(out)
+    return out
+
+
+def phase_train_entry(torch):
+    """meta-train -> checkpoint -> adapt -> serve, through the entry points
+    a user calls, on a synthetic 8-accent corpus at config3 width."""
+    from metaasr_tpu_torch.cli import make_trainer
+    from metaasr_tpu_torch.data.audio_io import load_wav
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+    from metaasr_tpu_torch.frontend.fbank_kernel import fused_log_mel
+    from metaasr_tpu_torch.ops.ctc_kernel import ctc_alpha_beta
+    from metaasr_tpu_torch.serve.export import (
+        ServingDecoder,
+        load_bundle_params,
+        write_bundle,
+    )
+    from metaasr_tpu_torch.train.checkpoint import save_params_npz
+    from metaasr_tpu_torch.weights import params_to_flax
+
+    cfg, tok = config3_train()
+    steps = 3
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "data")
+        t0 = time.perf_counter()
+        generate_dataset(data, utts_per_accent=8, words_per_utt=(2, 4),
+                         seed=0)
+        gen_s = time.perf_counter() - t0
+        cfg.data.data_dir = data
+        cfg.data.heldout_accents = ("tango",)
+        cfg.train.log_every = 1
+        cfg.train.ckpt_every = 2
+        cfg.train.keep_ckpts = 2
+        fused_log_mel.launches = 0
+        ctc_alpha_beta.launches = 0
+        t0 = time.perf_counter()
+        trainer, tok = make_trainer(cfg, os.path.join(d, "wd"), DEVICE)
+        state = trainer.meta_train(max_steps=steps)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        with open(os.path.join(d, "wd", "logs", "scalars.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        ckpts = trainer.ckpt.all_steps()
+        restored, at = trainer.ckpt.restore(map_location=DEVICE)
+        restored_equal = at == steps and all(
+            torch.equal(restored["params"][k], v)
+            for k, v in state["params"].items())
+        adapted, test_idx = trainer.meta_adapt(
+            state["params"], trainer.heldout_datasets["tango"], seed=0)
+        npz = os.path.join(d, "adapted.npz")
+        save_params_npz(npz, adapted, cfg.model.num_heads)
+        bundle = os.path.join(d, "bundle")
+        write_bundle(bundle, cfg, params_to_flax(state["params"], 4), tok,
+                     [(4, 96000)])
+        dec = ServingDecoder(bundle, cfg, device=DEVICE)
+        ds = trainer.heldout_datasets["tango"]
+        wav = load_wav(os.path.join(ds.manifest.root,
+                                    ds.manifest.utts[test_idx[0]].wav))
+        served = dec.transcribe([wav], params=load_bundle_params(npz))
+        torch.cuda.synchronize()
+        k1, k2 = fused_log_mel.launches, ctc_alpha_beta.launches
+    m = cfg.meta
+    want_k1 = steps * 2 * m.tasks_per_batch + 1 + 1   # + adapt + serve
+    want_k2 = steps * m.tasks_per_batch * (m.inner_steps + 1) + m.adapt_steps
+    out = {"phase": "train_entry", "accents": 8, "heldout": "tango",
+           "corpus_s": gen_s, "meta_train_s": train_s, "steps": state["step"],
+           "meta_loss": [r["meta_loss"] for r in recs],
+           "utts_per_sec_logged": [r["utts_per_sec"] for r in recs],
+           "ckpt_steps": ckpts, "restored_equal": restored_equal,
+           "adapted_leaves": len(adapted), "served": served[0],
+           "k1_launches": k1, "k1_expected": want_k1,
+           "k2_launches": k2, "k2_expected": want_k2}
+    log(out)
+    if not (state["step"] == steps and ckpts == [2, 3] and restored_equal
+            and all(math.isfinite(r["meta_loss"]) for r in recs)):
+        raise SystemExit("meta-train / checkpoint round trip failed")
+    check_results(served, 1, tok)
+    if (k1, k2) != (want_k1, want_k2):
+        raise SystemExit(f"train entry launch counts K1 {k1} (want "
+                         f"{want_k1}), K2 {k2} (want {want_k2})")
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -374,14 +688,36 @@ def main() -> int:
     k1 = phase_kernel(torch, peaks)
     serving = phase_serving(torch)
     phase_parity(torch)
+    k2 = phase_ctc_kernel(torch, peaks)
+    meta = phase_meta_step(torch)
+    entry = phase_train_entry(torch)
+    k1_paths = {"serving": serving["k1_launches"],
+                **{f"meta_step_{c['tasks']}x{c['shots']}": c["k1_launches"]
+                   for c in meta["cells"]},
+                "train_entry": entry["k1_launches"]}
+    k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
+                   for c in meta["cells"]},
+                "train_entry": entry["k2_launches"]}
+    k2_task = k2["shapes"]["per_task"]
     log({"kernels": [{
         "name": "fbank_log_mel", "route": "cuda",
         "source": "metaasr_tpu_torch/csrc/fbank.cu",
         "replaces": "metaasr_tpu/frontend/pallas_fbank.py:54",
-        "launches": serving["k1_launches"],
+        "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": None}]})
+        "bound_by": k1["bound_by"], "library_ms": None}, {
+        "name": "ctc_alpha_beta", "route": "cuda",
+        "source": "metaasr_tpu_torch/csrc/ctc.cu",
+        "replaces": "metaasr_tpu/ops/ctc_pallas.py:66",
+        "launches": sum(k2_paths.values()), "launches_by_path": k2_paths,
+        "max_abs_err": max(e["loss_max_abs_diff"]
+                           for e in k2["shapes"].values()),
+        "grad_l2rel": max(e["grad_l2rel"] for e in k2["shapes"].values()),
+        "shape_btuv": k2_task["shape_btuv"], "ms": k2_task["ms"],
+        "plain_ms": k2_task["plain_ms"], "bound_ms": k2_task["bound_ms"],
+        "bound_by": k2_task["bound_by"],
+        "library_ms": k2_task["library_ms"]}]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

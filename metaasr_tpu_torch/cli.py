@@ -1,21 +1,27 @@
-"""Command line for the port (counterpart of ``metaasr_tpu/cli.py``); this
-slice has the serving mode only:
+"""Command line for the port (counterpart of ``metaasr_tpu/cli.py``):
+
+    python -m metaasr_tpu_torch.cli --mode train \
+        --config configs/config3_fomaml.yaml --data-dir DIR --workdir WD \
+        [--algo fomaml|reptile] [--max-steps N] [--seed N] [-o key=value]
 
     python -m metaasr_tpu_torch.cli --mode serve --bundle DIR \
         --config configs/config3_fomaml.yaml --wav a.wav [b.wav ...]
 
-The bundle is one the JAX package exported (``--mode export``) or one
-``serve.export.write_bundle`` wrote; ``--config`` supplies what the bundle
-does not record (model dims and dtype, CMVN mode, beam options). Runs on
-CUDA unless ``--device cpu`` is given.
+``train`` meta-trains on the accents of ``--data-dir`` (``<accent>.jsonl``
+manifests, e.g. from ``data.synthetic.generate_dataset``), checkpointing
+under ``<workdir>/ckpts``. ``serve`` transcribes with a bundle the JAX
+package exported (``--mode export``) or ``serve.export.write_bundle`` wrote;
+``--config`` supplies what the bundle does not record (model dims and dtype,
+CMVN mode, beam options). Both run on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
-from metaasr_tpu_torch.config import load_config
+from metaasr_tpu_torch.config import Config, load_config, save_config
 
 
 def _parse_override(kv: str):
@@ -30,32 +36,86 @@ def _parse_override(kv: str):
     return key, val
 
 
+def build_tokenizer(cfg: Config):
+    """The char vocabulary (the transformer configs'); phone and BPE
+    vocabularies are not ported yet (ROADMAP.md)."""
+    from metaasr_tpu_torch.data.tokenizer import CharTokenizer
+
+    if cfg.data.vocab != "char":
+        raise NotImplementedError(
+            f"vocab {cfg.data.vocab!r} is not ported yet (ROADMAP.md, port "
+            "queue); the port trains with the char vocabulary")
+    return CharTokenizer.ascii_default()
+
+
+def make_trainer(cfg: Config, workdir: str, device=None):
+    """(MetaASRTrainer, tokenizer) for a fomaml/reptile config; held-out
+    accents (``data.heldout_accents``) are kept out of the task pool."""
+    from metaasr_tpu_torch.data.dataset import load_accent_datasets
+    from metaasr_tpu_torch.task import ASRTask
+    from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
+
+    algo = cfg.meta.algo
+    if algo not in ("fomaml", "maml", "reptile"):
+        raise NotImplementedError(
+            f"algo {algo!r} (mono/multitask trainers) is not ported yet "
+            "(ROADMAP.md)")
+    tok = build_tokenizer(cfg)
+    cfg.model.vocab_size = tok.vocab_size
+    spk_path = ""
+    if cfg.frontend.cmvn == "speaker":
+        spk_path = (cfg.frontend.cmvn_stats_path
+                    or os.path.join(cfg.data.data_dir, "speaker_cmvn.json"))
+    load = lambda accents: load_accent_datasets(  # noqa: E731
+        cfg.data.data_dir, tok, accents=accents, vocab=cfg.data.vocab,
+        sample_rate=cfg.frontend.sample_rate, speaker_cmvn_path=spk_path,
+        cache_audio=cfg.data.cache_audio)
+    dsets = load(cfg.data.accents)
+    heldout = {}
+    for name in cfg.data.heldout_accents:
+        heldout[name] = (dsets.pop(name) if name in dsets
+                         else load((name,))[name])
+    task = ASRTask(cfg, tok.sos_eos_id, device=device)
+    return MetaASRTrainer(cfg, task, dsets, heldout, tok, workdir,
+                          device=device), tok
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("metaasr_tpu_torch")
-    p.add_argument("--mode", choices=["serve"], default="serve")
+    p.add_argument("--mode", choices=["train", "serve"], default="serve")
     p.add_argument("--config", type=str, default=None,
                    help="the run's YAML config (defaults: Config())")
-    p.add_argument("--bundle", type=str, required=True,
-                   help="serving bundle directory")
-    p.add_argument("--wav", nargs="+", required=True,
-                   help="WAV files to transcribe")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "PyTorch path)")
-    p.add_argument("--serve-params", type=str, default=None,
-                   help="hot-swap an adapted params npz (flat a/b/c keys, "
-                   "Flax layout)")
-    p.add_argument("--serve-out", type=str, default=None,
-                   help="also write one JSONL record per file here")
-    p.add_argument("--dump-nbest", type=int, default=1,
-                   help="hypotheses (with scores) per utterance")
     p.add_argument("-o", "--override", action="append", default=[],
                    help="dotted config override key=value")
+    t = p.add_argument_group("train")
+    t.add_argument("--algo", choices=["fomaml", "maml", "reptile"],
+                   default=None)
+    t.add_argument("--workdir", type=str, default="runs/default")
+    t.add_argument("--data-dir", type=str, default=None)
+    t.add_argument("--max-steps", type=int, default=None)
+    t.add_argument("--seed", type=int, default=None)
+    s = p.add_argument_group("serve")
+    s.add_argument("--bundle", type=str, help="serving bundle directory")
+    s.add_argument("--wav", nargs="+", help="WAV files to transcribe")
+    s.add_argument("--serve-params", type=str, default=None,
+                   help="hot-swap an adapted params npz (flat a/b/c keys, "
+                   "Flax layout)")
+    s.add_argument("--serve-out", type=str, default=None,
+                   help="also write one JSONL record per file here")
+    s.add_argument("--dump-nbest", type=int, default=1,
+                   help="hypotheses (with scores) per utterance")
     args = p.parse_args(argv)
 
+    overrides = dict(_parse_override(kv) for kv in args.override)
+    if args.mode == "train":
+        return _train(args, overrides)
+    if not args.bundle or not args.wav:
+        p.error("--mode serve needs --bundle DIR and --wav FILE [FILE ...]")
     from metaasr_tpu_torch.serve.export import ServingDecoder, load_bundle_params
 
-    overrides = dict(_parse_override(kv) for kv in args.override)
     cfg = load_config(args.config, overrides)
     dec = ServingDecoder(args.bundle, cfg, device=args.device)
     params = (load_bundle_params(args.serve_params)
@@ -69,6 +129,25 @@ def main(argv=None):
     if args.serve_out:
         with open(args.serve_out, "w") as f:
             f.writelines(line + "\n" for line in lines)
+    return 0
+
+
+def _train(args, overrides: dict) -> int:
+    if args.algo:
+        overrides["meta.algo"] = args.algo
+    if args.seed is not None:
+        overrides["train.seed"] = args.seed
+        overrides["data.seed"] = args.seed
+    if args.data_dir:
+        overrides["data.data_dir"] = args.data_dir
+    if args.max_steps:
+        overrides["train.max_steps"] = args.max_steps
+    cfg = load_config(args.config, overrides)
+    os.makedirs(args.workdir, exist_ok=True)
+    save_config(cfg, os.path.join(args.workdir, "config.yaml"))
+    trainer, _ = make_trainer(cfg, args.workdir, device=args.device)
+    state = trainer.meta_train()
+    print(json.dumps({"workdir": args.workdir, "step": state["step"]}))
     return 0
 
 

@@ -1,5 +1,5 @@
-"""WAV decode — native C++ fast path with a numpy fallback (counterpart of
-``metaasr_tpu/data/audio_io.py``, reader side).
+"""WAV decode/write — native C++ fast path with a numpy fallback
+(counterpart of ``metaasr_tpu/data/audio_io.py``).
 
 The reference crosses into sox/libsndfile here (SURVEY.md section 2.2 #N5);
 the first-party equivalent is native/wavio.cpp (ctypes).
@@ -28,6 +28,30 @@ def load_wav(path: str, target_rate: int = 16000) -> np.ndarray:
             )
             return buf
     return _load_wav_py(path, target_rate)
+
+
+def write_wav(path: str, samples: np.ndarray, rate: int = 16000) -> None:
+    """Write float32 samples as 16-bit PCM mono."""
+    samples = np.asarray(samples, dtype=np.float32)
+    lib = get_native_lib()
+    if lib is not None:
+        rc = lib.metaasr_write_wav(
+            path.encode(),
+            np.ascontiguousarray(samples).ctypes.data_as(
+                ctypes.POINTER(ctypes.c_float)),
+            len(samples), rate)
+        if rc == 0:
+            return
+    _write_wav_py(path, samples, rate)
+
+
+def _write_wav_py(path: str, samples: np.ndarray, rate: int) -> None:
+    pcm = (np.clip(samples, -1.0, 1.0) * 32767.0).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
 
 
 def _load_wav_py(path: str, target_rate: int) -> np.ndarray:

@@ -1,0 +1,174 @@
+"""Meta-task sampler and collation (counterpart of the meta-learning part of
+``metaasr_tpu/data/sampler.py``: ``collate``, ``TaskSampler``,
+``support_query_split``).
+
+Each ``TaskSampler.sample(step)`` draws ``tasks_per_batch`` accents and,
+per accent, disjoint support/query utterances, collated to numpy arrays
+with a leading task axis ``[M, k, ...]`` at one (samples, tokens) shape per
+step. The draw is a pure function of (seed, step), with the reference's
+numpy calls in the reference's order, so both packages train on the same
+batches.
+
+Batch fields (audio mode): audio [B, S] float32, audio_lens [B] int32,
+tokens [B, U] int32, token_lens [B] int32 (+ texts).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from metaasr_tpu_torch.frontend.fbank import num_frames
+from metaasr_tpu_torch.utils.padding import bucket_length
+
+
+def collate(items: list[dict], num_samples: int, num_tokens: int) -> dict:
+    """Pad dataset items to [B, num_samples] / [B, num_tokens].
+
+    Precomputed-feature items ('feats' [T, 80]) pad to the frame count the
+    same ``num_samples`` waveform cap would give."""
+    bsz = len(items)
+    feats_mode = "feats" in items[0]
+    if any(("feats" in it) != feats_mode for it in items):
+        raise ValueError(
+            "collate: cannot mix precomputed-feature and raw-audio items "
+            "in one batch (check that every manifest in the run uses the "
+            "same payload mode)")
+    tokens = np.zeros((bsz, num_tokens), dtype=np.int32)
+    token_lens = np.zeros((bsz,), dtype=np.int32)
+    texts = []
+    if feats_mode:
+        t_max = max(1, num_frames(num_samples))
+        feat_dim = items[0]["feats"].shape[1]
+        feats = np.zeros((bsz, t_max, feat_dim), dtype=np.float32)
+        feat_lens = np.zeros((bsz,), dtype=np.int32)
+        for i, it in enumerate(items):
+            f = it["feats"][:t_max]
+            feats[i, : len(f)] = f
+            feat_lens[i] = len(f)
+    else:
+        audio = np.zeros((bsz, num_samples), dtype=np.float32)
+        audio_lens = np.zeros((bsz,), dtype=np.int32)
+        for i, it in enumerate(items):
+            a = it["audio"][:num_samples]
+            audio[i, : len(a)] = a
+            audio_lens[i] = len(a)
+    for i, it in enumerate(items):
+        t = it["tokens"][:num_tokens]
+        tokens[i, : len(t)] = t
+        token_lens[i] = len(t)
+        texts.append(it["text"])
+    out = ({"feats": feats, "feat_lens": feat_lens} if feats_mode
+           else {"audio": audio, "audio_lens": audio_lens})
+    out.update({"tokens": tokens, "token_lens": token_lens, "texts": texts})
+    if items and "cmvn_mean" in items[0]:  # speaker-level CMVN vectors
+        out["cmvn_mean"] = np.stack([it["cmvn_mean"] for it in items])
+        out["cmvn_std"] = np.stack([it["cmvn_std"] for it in items])
+    return out
+
+
+class TaskSampler:
+    """Per-accent meta-task sampler: ``sample(step)`` -> {"accents",
+    "support", "query"} with ``[M, k, ...]`` arrays."""
+
+    def __init__(self, datasets: dict, k_support: int, k_query: int,
+                 tasks_per_batch: int, num_samples: int, num_tokens: int,
+                 seed: int = 0, sample_buckets=(), token_buckets=()):
+        self.datasets = dict(datasets)
+        self.accents = sorted(self.datasets)
+        if tasks_per_batch > len(self.accents):
+            raise ValueError(
+                f"tasks_per_batch={tasks_per_batch} > {len(self.accents)} accents")
+        self.k_support = k_support
+        self.k_query = k_query
+        self.tasks_per_batch = tasks_per_batch
+        self.num_samples = num_samples
+        self.num_tokens = num_tokens
+        self.seed = seed
+        # per step the batch pads to the smallest bucket that fits the
+        # longest drawn utterance (buckets clamped to the caps; none = the
+        # caps)
+        self.sample_buckets = tuple(
+            sorted({min(int(s), num_samples) for s in sample_buckets}))
+        self.token_buckets = tuple(
+            sorted({min(int(u), num_tokens) for u in token_buckets}))
+        # per-accent (num_samples, token_len) metadata: the bucket choice
+        # never loads audio
+        self._meta = {}
+        for a, ds in self.datasets.items():
+            ns = np.asarray([min(u.num_samples, num_samples)
+                             for u in ds.manifest.utts], np.int64)
+            tl = np.asarray(
+                [min(len(ds.tokenizer.encode(ds.transcript(i))), num_tokens)
+                 for i in range(len(ds))], np.int64)
+            self._meta[a] = (ns, tl)
+
+    def sample_indices(self, step: int):
+        """(accents [M], support_idx [M, ks], query_idx [M, kq]) for
+        ``step``: a pure function of (seed, step)."""
+        rng = np.random.default_rng((self.seed, int(step)))
+        accents = rng.choice(self.accents, size=self.tasks_per_batch,
+                             replace=False)
+        sup_idx, qry_idx = [], []
+        for a in accents:
+            n = len(self.datasets[a])
+            idx = rng.choice(n, size=min(self.k_support + self.k_query, n),
+                             replace=n < self.k_support + self.k_query)
+            s_idx, q_idx = idx[: self.k_support], idx[self.k_support:]
+            if len(q_idx) < self.k_query:
+                q_idx = np.concatenate(
+                    [q_idx, rng.choice(n, size=self.k_query - len(q_idx))])
+            sup_idx.append(s_idx.astype(np.int32))
+            qry_idx.append(q_idx.astype(np.int32))
+        return list(accents), np.stack(sup_idx), np.stack(qry_idx)
+
+    def sample(self, step: int) -> dict:
+        """Meta-batch for ``step``."""
+        accents, sup_idx, qry_idx = self.sample_indices(int(step))
+        num_samples, num_tokens = self.step_shape(accents, sup_idx, qry_idx)
+        sup, qry = [], []
+        for a, s_idx, q_idx in zip(accents, sup_idx, qry_idx):
+            ds = self.datasets[a]
+            sup.append(collate([ds[int(i)] for i in s_idx],
+                               num_samples, num_tokens))
+            qry.append(collate([ds[int(i)] for i in q_idx],
+                               num_samples, num_tokens))
+        return {"accents": accents, "support": _stack_batches(sup),
+                "query": _stack_batches(qry)}
+
+    def step_shape(self, accents, sup_idx, qry_idx) -> tuple[int, int]:
+        """(num_samples, num_tokens) for this draw: the smallest buckets that
+        fit its longest utterance (the caps when no buckets are set)."""
+        if not self.sample_buckets and not self.token_buckets:
+            return self.num_samples, self.num_tokens
+        s_max, u_max = 1, 1
+        for a, s_idx, q_idx in zip(accents, sup_idx, qry_idx):
+            ns, tl = self._meta[a]
+            idx = np.concatenate([s_idx, q_idx])
+            s_max = max(s_max, int(ns[idx].max()))
+            u_max = max(u_max, int(tl[idx].max()))
+        s = (bucket_length(s_max, self.sample_buckets)
+             if self.sample_buckets else self.num_samples)
+        u = (bucket_length(u_max, self.token_buckets)
+             if self.token_buckets else self.num_tokens)
+        return s, u
+
+
+def support_query_split(ds, k_support: int, num_samples: int, num_tokens: int,
+                        seed: int = 0) -> tuple[dict, list[int]]:
+    """k-shot adaptation split of a held-out accent: a fixed support batch
+    and the remaining utterance indices as the test set."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(len(ds))
+    support = collate([ds[int(i)] for i in idx[:k_support]], num_samples,
+                      num_tokens)
+    return support, [int(i) for i in idx[k_support:]]
+
+
+def _stack_batches(batches: list[dict]) -> dict:
+    out = {}
+    for k in batches[0]:
+        if k == "texts":
+            out[k] = [b[k] for b in batches]
+        else:
+            out[k] = np.stack([b[k] for b in batches])
+    return out

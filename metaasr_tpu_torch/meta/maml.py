@@ -1,0 +1,340 @@
+"""FOMAML and Reptile meta-gradients over parameter dicts (counterpart of
+``metaasr_tpu/meta/maml.py``).
+
+Everything here is generic over ``loss_fn(params, batch, generator, train)
+-> (scalar, aux)`` with ``params`` a dict of tensors (the model's parameter
+names; with Meta-SGD the tree ``{"model": ..., "inner_lr": ...}``), so the
+meta-gradient math is tested on the analytic quadratic family and reused
+verbatim by the ASR task.
+
+- The inner loop is a Python loop of functional SGD updates
+  ``p_{i+1} = p_i - lr * grad(loss)(p_i, support)``.
+- FOMAML detaches the inner gradient's INPUT: ``grad`` is taken at a
+  detached copy of ``p_i``, so the adapted parameters depend on the
+  originals with identity Jacobian (the first-order approximation) and the
+  outer backward never differentiates the inner gradient. K2 is first order
+  only, so full second-order MAML raises (ROADMAP.md, port queue item 2:
+  K2b).
+- The task axis is a loop: batches carry a leading task axis [M, k, ...],
+  each task runs and back-propagates its query loss / M in turn (one task's
+  graph alive at a time), and the outer gradient is the mean over tasks.
+  ``torch.func.vmap`` is not used: the kernels are ctypes calls that cannot
+  see batched tensors.
+- ``preprocess_fn`` (front-end + SpecAugment) runs once per task batch,
+  outside the inner loop.
+- Meta-SGD needs no flag here: a ``{"model", "inner_lr"}`` tree updates
+  each leaf with its own learned rate, which is not detached, so FOMAML's
+  outer gradient reaches it.
+- Randomness: the meta functions take an integer ``seed``; each consumer
+  gets its own ``torch.Generator`` on the batch's device, seeded from
+  ``fold_in(seed, ...)``, so a step is a pure function of its seed.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from metaasr_tpu_torch.utils.tree import flatten, unflatten_like
+from metaasr_tpu_torch.weights import flax_path
+
+
+@dataclass(frozen=True)
+class MetaAlgoConfig:
+    inner_lr: float = 1e-2
+    inner_steps: int = 3
+    first_order: bool = True
+    # low-precision meta-step: cast the fp32 masters once on entry, run the
+    # inner loop and the outer backward in this dtype, cast the gradients
+    # back to each master leaf's dtype on exit
+    grad_dtype: str | None = None
+    # global-norm clip of the inner gradient over the ADAPTED leaves
+    # (0 = off); the scale is a constant to the outer gradient
+    inner_clip: float = 0.0
+    # ANIL: the inner loop updates only leaves whose Flax path contains one
+    # of these substrings; the outer optimizer trains every leaf
+    adapt_filter: tuple[str, ...] | None = None
+
+
+LossFn = Callable  # (params, batch, generator, train) -> (scalar, aux)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def fold_in(seed: int, *data: int) -> int:
+    """A new 63-bit seed from ``seed`` and integers (numpy SeedSequence)."""
+    ss = np.random.SeedSequence([int(seed) & (2**63 - 1),
+                                 *(int(d) for d in data)])
+    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def split_lr(params):
+    """Meta-SGD tree -> (model, lr_tree); any other dict -> (params, None)."""
+    if isinstance(params, dict) and set(params) == {"model", "inner_lr"}:
+        return params["model"], params["inner_lr"]
+    return params, None
+
+
+def wrap_lr(model_params: dict, init_lr: float) -> dict:
+    """Attach Meta-SGD inner rates: one fp32 scalar per model leaf."""
+    return {"model": model_params,
+            "inner_lr": {k: torch.tensor(init_lr, dtype=torch.float32,
+                                         device=v.device)
+                         for k, v in model_params.items()}}
+
+
+def adapt_mask(model: dict, patterns: tuple[str, ...]) -> dict[str, bool]:
+    """{leaf: adapted?}: a leaf adapts iff its Flax path (``encoder/layer_0
+    /self_attn/qkv/kernel``, the reference's naming) contains a pattern."""
+    mask = {k: any(p in flax_path(k) for p in patterns) for k in model}
+    if not any(mask.values()):
+        roots = sorted({flax_path(k).split("/")[0] for k in model})
+        raise ValueError(
+            f"adapt_filter {patterns} matches no parameter leaf; the inner "
+            f"loop would be a no-op. Param path roots: {roots}")
+    return mask
+
+
+def _task(batch: dict, m: int) -> dict:
+    return {k: v[m] for k, v in batch.items()}
+
+
+def _num_tasks(meta_batch: dict) -> int:
+    return next(iter(meta_batch["support"].values())).shape[0]
+
+
+def _device(batch: dict):
+    return next(iter(batch.values())).device
+
+
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``, as a Python float: multiplying a tensor
+    by it equals the reference's weak-typed scalar product in that dtype,
+    with no host-to-device copy."""
+    return float(torch.tensor(float(x), dtype=dtype))
+
+
+def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
+                     train: bool = True) -> Callable:
+    """Returns ``inner_adapt(params, support_batch, seed, inner_scale=None,
+    widen_scale=None) -> (adapted_params, support losses [inner_steps])``.
+
+    ``inner_scale`` (0/1 gate of every inner update) and ``widen_scale``
+    (0/1 gate of the updates of leaves outside ``adapt_filter``) are host
+    numbers, constants to the outer gradient."""
+    if not cfg.first_order:
+        raise NotImplementedError(
+            "second-order MAML differentiates through the inner gradient, "
+            "which needs a twice-differentiable CTC (K2b); it is ROADMAP.md "
+            "port queue item 2. Use algo fomaml or reptile.")
+
+    def one_step(params, generator, batch, inner_scale, widen_scale):
+        model, lr = split_lr(params)
+        mask = (adapt_mask(model, cfg.adapt_filter) if cfg.adapt_filter
+                else dict.fromkeys(model, True))
+        widen = widen_scale is not None
+        with torch.enable_grad():
+            # the detach is on the INPUT of the inner gradient (FOMAML)
+            at = {k: v.detach().requires_grad_(mask[k] or widen)
+                  for k, v in model.items()}
+            wrt = [k for k in model if at[k].requires_grad]
+            loss, _ = loss_fn(at, batch, generator, train)
+            gs = torch.autograd.grad(loss, [at[k] for k in wrt],
+                                     allow_unused=True)
+        grads = {k: torch.zeros_like(at[k]) if g is None else g
+                 for k, g in zip(wrt, gs)}
+        if cfg.inner_clip:
+            gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                for k, g in grads.items() if mask[k]))
+            scale = torch.clamp_max(cfg.inner_clip / (gn + 1e-12), 1.0)
+            grads = {k: g * scale.to(g.dtype) for k, g in grads.items()}
+        if inner_scale is not None:
+            grads = {k: g * float(inner_scale) for k, g in grads.items()}
+        new_model = {}
+        for k, p in model.items():
+            if not (mask[k] or widen):
+                new_model[k] = p
+                continue
+            g = grads[k]
+            rate = (_rounded(cfg.inner_lr, p.dtype) if lr is None
+                    else lr[k].to(p.dtype))
+            if not mask[k]:
+                rate = rate * float(widen_scale)
+            new_model[k] = p - rate * g
+        if lr is None:
+            return new_model, loss.detach()
+        return {"model": new_model, "inner_lr": lr}, loss.detach()
+
+    def inner_adapt(params, support_batch, seed: int, inner_scale=None,
+                    widen_scale=None):
+        dev = _device(support_batch)
+        losses = []
+        for i in range(cfg.inner_steps):
+            params, loss = one_step(params,
+                                    make_generator(fold_in(seed, i), dev),
+                                    support_batch, inner_scale, widen_scale)
+            losses.append(loss)
+        return params, torch.stack(losses)
+
+    return inner_adapt
+
+
+def _preprocess(preprocess_fn, support, query, seed, dev):
+    if preprocess_fn is None:
+        return support, query
+    with torch.no_grad():
+        return (preprocess_fn(support, make_generator(fold_in(seed, 2), dev),
+                              True),
+                preprocess_fn(query, make_generator(fold_in(seed, 3), dev),
+                              True))
+
+
+def _leaf_copies(params: dict, dtype: torch.dtype | None,
+                 requires_grad: bool) -> dict:
+    """Detached working copies of the masters (cast once to ``dtype``)."""
+    flat = {k: (v.detach().to(dtype) if dtype is not None
+                and v.is_floating_point() else v.detach())
+            for k, v in flatten(params).items()}
+    if requires_grad:
+        for v in flat.values():
+            if v.is_floating_point():
+                v.requires_grad_(True)
+    return unflatten_like(params, flat)
+
+
+def _grad_dtype(cfg: MetaAlgoConfig):
+    return None if cfg.grad_dtype is None else _DTYPES[cfg.grad_dtype]
+
+
+def _task_losses(loss_fn, inner_adapt, preprocess_fn, params, meta_batch,
+                 seed: int, inner_scale, widen_scale):
+    """Per task, in turn: (query loss at the adapted parameters, with its
+    graph back to ``params``; support loss at inner step 0)."""
+    dev = _device(meta_batch["support"])
+    for m in range(_num_tasks(meta_batch)):
+        task_seed = fold_in(seed, m)
+        support, query = _preprocess(
+            preprocess_fn, _task(meta_batch["support"], m),
+            _task(meta_batch["query"], m), task_seed, dev)
+        adapted, s_loss = inner_adapt(params, support, fold_in(task_seed, 0),
+                                      inner_scale, widen_scale)
+        with torch.enable_grad():
+            q_loss, _ = loss_fn(split_lr(adapted)[0], query,
+                                make_generator(fold_in(task_seed, 1), dev),
+                                True)
+        yield q_loss, s_loss[0]
+
+
+def make_meta_loss(loss_fn: LossFn, cfg: MetaAlgoConfig,
+                   preprocess_fn: Callable | None = None) -> Callable:
+    """Returns ``meta_loss(params, meta_batch, seed, inner_scale=None,
+    widen_scale=None) -> (scalar, aux)``: the mean over tasks of the query
+    loss after the inner steps, differentiable w.r.t. ``params`` (first
+    order), with per-task query and support losses in ``aux``. It keeps
+    every task's graph; ``maml_grads`` back-propagates task by task
+    instead."""
+    inner_adapt = make_inner_adapt(loss_fn, cfg, train=True)
+
+    def meta_loss(params, meta_batch, seed: int, inner_scale=None,
+                  widen_scale=None):
+        q, s = zip(*_task_losses(loss_fn, inner_adapt, preprocess_fn, params,
+                                 meta_batch, seed, inner_scale, widen_scale))
+        q = torch.stack(q)
+        return q.mean(), {"task_query_losses": q,
+                          "task_support_losses": torch.stack(s)}
+
+    return meta_loss
+
+
+def maml_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
+               preprocess_fn: Callable | None = None):
+    """Returns ``grad_fn(params, meta_batch, seed, inner_scale=None,
+    widen_scale=None) -> (grads, metrics)``, the FOMAML outer gradient:
+    the gradient of ``make_meta_loss``'s loss, accumulated in fp32 one task
+    at a time so that one task's graph is alive at once.
+    ``meta_batch = {"support": {...}, "query": {...}}`` with a leading task
+    axis; ``grads`` has the structure and dtypes of ``params``."""
+    inner_adapt = make_inner_adapt(loss_fn, cfg, train=True)
+    dtype = _grad_dtype(cfg)
+
+    def grad_fn(params, meta_batch, seed: int, inner_scale=None,
+                widen_scale=None):
+        work = _leaf_copies(params, dtype, requires_grad=True)
+        leaves = flatten(work)
+        keys = [k for k, v in leaves.items() if v.requires_grad]
+        acc = {k: torch.zeros_like(leaves[k], dtype=torch.float32)
+               for k in keys}
+        m_tasks = _num_tasks(meta_batch)
+        q_losses, s_losses = [], []
+        for q_loss, s_loss in _task_losses(loss_fn, inner_adapt,
+                                           preprocess_fn, work, meta_batch,
+                                           seed, inner_scale, widen_scale):
+            gs = torch.autograd.grad(q_loss / m_tasks,
+                                     [leaves[k] for k in keys],
+                                     allow_unused=True)
+            for k, g in zip(keys, gs):
+                if g is not None:
+                    acc[k] += g.float()
+            q_losses.append(q_loss.detach())
+            s_losses.append(s_loss)
+        flat_p = flatten(params)
+        grads = unflatten_like(params, {
+            k: (acc[k].to(flat_p[k].dtype) if k in acc
+                else torch.zeros_like(flat_p[k])) for k in flat_p})
+        q = torch.stack(q_losses)
+        metrics = {"meta_loss": q.mean(), "query_loss_mean": q.mean(),
+                   "query_loss_max": q.max(),
+                   "support_loss_mean": torch.stack(s_losses).mean()}
+        return grads, metrics
+
+    return grad_fn
+
+
+def reptile_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
+                  preprocess_fn: Callable | None = None):
+    """Reptile (Nichol et al. 2018) in ``maml_grads``'s shape: per task, the
+    inner steps run on support and query concatenated, and the outer
+    "gradient" is the mean over tasks of ``params - adapted``. No query
+    backward. The last inner-step loss is reported under the query keys."""
+    inner_adapt = make_inner_adapt(loss_fn, cfg, train=True)
+    dtype = _grad_dtype(cfg)
+
+    def grad_fn(params, meta_batch, seed: int, inner_scale=None,
+                widen_scale=None):
+        del inner_scale, widen_scale   # rejected for Reptile by algo_config
+        work = _leaf_copies(params, dtype, requires_grad=False)
+        m_tasks = _num_tasks(meta_batch)
+        dev = _device(meta_batch["support"])
+        deltas, first, last = [], [], []
+        for m in range(m_tasks):
+            task_seed = fold_in(seed, m)
+            support, query = _preprocess(
+                preprocess_fn, _task(meta_batch["support"], m),
+                _task(meta_batch["query"], m), task_seed, dev)
+            both = {k: torch.cat([support[k], query[k]], dim=0)
+                    for k in support}
+            adapted, losses = inner_adapt(work, both, fold_in(task_seed, 0))
+            fw, fa = flatten(work), flatten(adapted)
+            deltas.append({k: fw[k] - fa[k] for k in fw})
+            first.append(losses[0])
+            last.append(losses[-1])
+        flat_p = flatten(params)
+        grads = unflatten_like(params, {
+            k: torch.stack([d[k] for d in deltas]).mean(0).to(flat_p[k].dtype)
+            for k in flat_p})
+        last_t = torch.stack(last)
+        metrics = {"meta_loss": last_t.mean(),
+                   "query_loss_mean": last_t.mean(),
+                   "query_loss_max": last_t.max(),
+                   "support_loss_mean": torch.stack(first).mean()}
+        return grads, metrics
+
+    return grad_fn

@@ -1,5 +1,6 @@
 """Joint CTC-attention transformer (counterpart of
-``metaasr_tpu/models/transformer.py``), inference methods.
+``metaasr_tpu/models/transformer.py``): the teacher-forced training forward
+and the inference methods.
 
 PyTorch layouts (``nn.Linear`` weight ``[out, in]``, ``Conv2d`` OIHW,
 NCHW activations); ``weights.py`` maps the Flax parameter tree onto them.
@@ -17,6 +18,10 @@ dtype with fp32 weights:
 The decoder's self-attention KV cache has a fixed length and is written in
 place at each step; a step attends only to the filled prefix, which equals
 the reference's masked attention over the whole cache.
+
+Dropout sits where the reference has it (after the positional encoding,
+after each residual branch, inside the feed-forward) and draws its masks
+from the ``generator`` passed down with ``train=True``.
 """
 
 from __future__ import annotations
@@ -47,6 +52,34 @@ def length_mask_bias(lens: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B] -> [B, 1, 1, max_len] fp32 additive bias (0 valid / NEG_INF pad)."""
     valid = make_non_pad_mask(lens, max_len)
     return torch.where(valid, 0.0, NEG_INF).to(torch.float32)[:, None, None, :]
+
+
+def causal_mask_bias(q_len: int, k_len: int, offset: int = 0,
+                     device=None) -> torch.Tensor:
+    """[1, 1, q_len, k_len] fp32 additive causal bias; query t sees keys
+    <= t + offset."""
+    q = torch.arange(q_len, device=device)[:, None]
+    k = torch.arange(k_len, device=device)[None, :]
+    return torch.where(k <= q + offset, 0.0, NEG_INF).to(
+        torch.float32)[None, None]
+
+
+class Dropout(nn.Module):
+    """Flax's ``nn.Dropout``: keep with probability 1-rate and scale by
+    1/(1-rate) when training; the identity otherwise or at rate 0. Masks
+    come from the caller's ``torch.Generator``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 
 class Dense(nn.Linear):
@@ -153,28 +186,33 @@ class CrossAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype):
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype,
+                 dropout: float = 0.0):
         super().__init__()
         self.fc1 = Dense(d_model, d_ff, dtype)
         self.fc2 = Dense(d_ff, d_model, dtype)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x):
-        return self.fc2(torch.relu(self.fc1(x)))
+    def forward(self, x, train: bool = False, generator=None):
+        return self.fc2(self.drop(torch.relu(self.fc1(x)), train, generator))
 
 
 class EncoderLayer(nn.Module):
     """Pre-LN encoder layer."""
 
-    def __init__(self, d_model, num_heads, d_ff, dtype):
+    def __init__(self, d_model, num_heads, d_ff, dtype, dropout: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.self_attn = SelfAttention(d_model, num_heads, dtype)
-        self.ff = FeedForward(d_model, d_ff, dtype)
+        self.ff = FeedForward(d_model, d_ff, dtype, dropout)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x, mask_bias):
-        x = x + self.self_attn(self.norm1(x), mask_bias)
-        return x + self.ff(self.norm2(x))
+    def forward(self, x, mask_bias, train: bool = False, generator=None):
+        y = self.self_attn(self.norm1(x), mask_bias)
+        x = x + self.drop(y, train, generator)
+        y = self.ff(self.norm2(x), train, generator)
+        return x + self.drop(y, train, generator)
 
 
 class Conv2dSubsampling(nn.Module):
@@ -197,20 +235,21 @@ class Conv2dSubsampling(nn.Module):
 
 class Encoder(nn.Module):
     def __init__(self, d_model, num_heads, d_ff, num_layers, feat_dim, dtype,
-                 max_len: int = 4096):
+                 max_len: int = 4096, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.dtype = dtype
         self.subsample = Conv2dSubsampling(d_model, feat_dim, dtype)
+        self.drop = Dropout(dropout)
         self.layers = nn.ModuleList(
-            EncoderLayer(d_model, num_heads, d_ff, dtype)
+            EncoderLayer(d_model, num_heads, d_ff, dtype, dropout)
             for _ in range(num_layers))
         self.final_norm = LayerNorm(d_model)
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_positions(max_len, d_model)),
             persistent=False)
 
-    def forward(self, feats, feat_lens):
+    def forward(self, feats, feat_lens, train: bool = False, generator=None):
         feats = torch.where(
             make_non_pad_mask(feat_lens, feats.shape[1])[..., None], feats, 0.0)
         x = self.subsample(feats)
@@ -219,23 +258,36 @@ class Encoder(nn.Module):
         # sqrt(d) rounded to the compute dtype, as the reference computes it
         scale = float(torch.tensor(float(self.d_model), dtype=x.dtype).sqrt())
         x = x * scale + self.pe[:t_len].to(x.dtype)
+        x = self.drop(x, train, generator)
         bias = length_mask_bias(out_lens, t_len)
         for layer in self.layers:
-            x = layer(x, bias)
+            x = layer(x, bias, train, generator)
         x = self.final_norm(x)
         return (torch.where(make_non_pad_mask(out_lens, t_len)[..., None],
                             x, 0.0), out_lens)
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model, num_heads, d_ff, dtype):
+    def __init__(self, d_model, num_heads, d_ff, dtype, dropout: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.norm3 = LayerNorm(d_model)
         self.self_attn = SelfAttention(d_model, num_heads, dtype)
         self.cross_attn = CrossAttention(d_model, num_heads, dtype)
-        self.ff = FeedForward(d_model, d_ff, dtype)
+        self.ff = FeedForward(d_model, d_ff, dtype, dropout)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x, self_bias, enc, cross_bias, train: bool = False,
+                generator=None):
+        """Teacher-forced layer over the whole target sequence."""
+        y = self.self_attn(self.norm1(x), self_bias)
+        x = x + self.drop(y, train, generator)
+        y, _ = self.cross_attn(self.norm2(x), cross_bias,
+                               self.cross_attn.kv(enc))
+        x = x + self.drop(y, train, generator)
+        y = self.ff(self.norm3(x), train, generator)
+        return x + self.drop(y, train, generator)
 
     def step(self, x, cross_bias, self_cache, cache_index, cross_kv,
              return_cross_attn: bool = False):
@@ -249,14 +301,14 @@ class DecoderLayer(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, vocab_size, d_model, num_heads, d_ff, num_layers,
-                 dtype, max_len: int = 512):
+                 dtype, max_len: int = 512, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
         self.dtype = dtype
         self.embed = nn.Embedding(vocab_size, d_model)
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, num_heads, d_ff, dtype)
+            DecoderLayer(d_model, num_heads, d_ff, dtype, dropout)
             for _ in range(num_layers))
         self.final_norm = LayerNorm(d_model)
         self.out_proj = Dense(d_model, vocab_size, torch.float32)
@@ -268,6 +320,20 @@ class Decoder(nn.Module):
         x = self.embed(tokens).float() * math.sqrt(self.d_model)
         x = x + self.pe[start: start + tokens.shape[1]]
         return x.to(self.dtype)
+
+    def forward(self, tokens, token_lens, enc, enc_lens, train: bool = False,
+                generator=None):
+        """Teacher-forced forward: tokens [B, U] (sos-prefixed) ->
+        logits [B, U, V] fp32."""
+        u_len = tokens.shape[1]
+        x = self._embed_pos(tokens, 0)
+        self_bias = (causal_mask_bias(u_len, u_len, device=tokens.device)
+                     + length_mask_bias(token_lens, u_len))
+        cross_bias = length_mask_bias(enc_lens, enc.shape[1])
+        enc = enc.to(self.dtype)
+        for layer in self.layers:
+            x = layer(x, self_bias, enc, cross_bias, train, generator)
+        return self.out_proj(self.final_norm(x))
 
     def init_state(self, bsz: int, max_decode_len: int) -> list[dict]:
         dh = self.d_model // self.num_heads
@@ -309,19 +375,30 @@ class TransformerASR(nn.Module):
     def __init__(self, vocab_size: int, d_model: int = 256, num_heads: int = 4,
                  d_ff: int = 2048, num_encoder_layers: int = 12,
                  num_decoder_layers: int = 6, feat_dim: int = 80,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.encoder = Encoder(d_model, num_heads, d_ff, num_encoder_layers,
-                               feat_dim, dtype)
+                               feat_dim, dtype, dropout=dropout)
         self.ctc_head = Dense(d_model, vocab_size, torch.float32)
         self.decoder = Decoder(vocab_size, d_model, num_heads, d_ff,
-                               num_decoder_layers, dtype)
+                               num_decoder_layers, dtype, dropout=dropout)
 
-    def encode(self, feats, feat_lens):
+    def forward(self, feats, feat_lens, tokens_in, token_in_lens,
+                train: bool = False, generator=None) -> dict:
+        """Teacher-forced forward; ``tokens_in`` [B, U+1] sos-prefixed.
+        Returns {ctc_logits [B, T', V], att_logits [B, U+1, V], enc_lens
+        [B], encoder_out [B, T', D]}."""
+        enc, enc_lens = self.encode(feats, feat_lens, train, generator)
+        return {"ctc_logits": self.ctc_head(enc),
+                "att_logits": self.decoder(tokens_in, token_in_lens, enc,
+                                           enc_lens, train, generator),
+                "enc_lens": enc_lens, "encoder_out": enc}
+
+    def encode(self, feats, feat_lens, train: bool = False, generator=None):
         """-> (encoder output [B, T', D] fp32, padded frames zeroed;
         lengths [B])."""
-        return self.encoder(feats, feat_lens)
+        return self.encoder(feats, feat_lens, train, generator)
 
     def apply_ctc_head(self, enc):
         return self.ctc_head(enc)

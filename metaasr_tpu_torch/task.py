@@ -1,7 +1,14 @@
-"""ASRTask — front-end and model construction for decoding (counterpart of
-``metaasr_tpu/train/task.py``: ``features``, ``_raw_fbank``, ``build_model``
-and ``_greedy_from_feats``). SpecAugment and the losses belong to the
-training slice and are not here.
+"""ASRTask — the bridge between data batches and the differentiable loss
+(counterpart of ``metaasr_tpu/train/task.py``).
+
+Everything trainable routes through ``ASRTask.loss_fn(params, batch,
+generator, train)``: waveform -> fbank (K1) -> CMVN -> SpecAugment -> model
+-> joint CTC/attention loss, with the CTC term through K2
+(``ops/ctc_kernel.py``) or the scan backend (``model.ctc_impl``). ``params``
+is a dict over the model's parameter names; the model runs through
+``torch.func.functional_call``, so the meta-learning code adapts plain
+tensors. Randomness (dither, SpecAugment, dropout) comes from the caller's
+``torch.Generator``.
 
 The features always come from K1 (``frontend.fbank``): the CUDA kernel on
 the card, its plain version on the CPU. ``frontend.use_pallas`` is kept in
@@ -18,10 +25,26 @@ import torch
 from metaasr_tpu_torch.config import Config
 from metaasr_tpu_torch.device import resolve_device
 from metaasr_tpu_torch.frontend.fbank import FbankParams, log_mel_fbank
+from metaasr_tpu_torch.frontend.specaug import spec_augment
+from metaasr_tpu_torch.models.losses import (
+    joint_ctc_attention_loss,
+    prepare_decoder_targets,
+)
 from metaasr_tpu_torch.models.transformer import TransformerASR
+from metaasr_tpu_torch.ops.ctc import ctc_loss
+from metaasr_tpu_torch.ops.ctc_kernel import ctc_loss_kernel
 from metaasr_tpu_torch.utils.padding import make_non_pad_mask
+from metaasr_tpu_torch.weights import random_state_dict
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def select_ctc_loss(impl: str):
+    """'auto' | 'pallas' -> K2's loss (the kernel on CUDA tensors, its plain
+    version on CPU tensors); 'scan' -> the autograd recursion."""
+    if impl not in ("auto", "pallas", "scan"):
+        raise ValueError(f"unknown ctc_impl {impl!r}")
+    return ctc_loss if impl == "scan" else ctc_loss_kernel
 
 
 def build_model(cfg: Config) -> TransformerASR:
@@ -38,16 +61,18 @@ def build_model(cfg: Config) -> TransformerASR:
                           num_encoder_layers=m.num_encoder_layers,
                           num_decoder_layers=m.num_decoder_layers,
                           feat_dim=cfg.frontend.num_mel_bins,
-                          dtype=_DTYPES[m.dtype])
+                          dtype=_DTYPES[m.dtype], dropout=m.dropout)
 
 
 class ASRTask:
-    """Front-end (fbank + CMVN) and model factory on one device."""
+    """Front-end, model and loss on one device."""
 
     def __init__(self, cfg: Config, sos_eos_id: int | None = None,
                  device: str | torch.device | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._ctc_loss = select_ctc_loss(cfg.model.ctc_impl)
+        self._module = None
         self.sos_eos_id = (sos_eos_id if sos_eos_id is not None
                            else cfg.model.vocab_size - 1)
         f = cfg.frontend
@@ -67,11 +92,31 @@ class ASRTask:
     def build_model(self) -> TransformerASR:
         return build_model(self.cfg).to(self.device).eval()
 
-    def features(self, audio, audio_lens, cmvn_mean=None, cmvn_std=None):
+    @property
+    def model(self) -> TransformerASR:
+        """The module ``loss_fn`` calls functionally (its own parameters are
+        never read: ``params`` replace them)."""
+        if self._module is None:
+            self._module = self.build_model()
+        return self._module
+
+    def init_params(self, seed: int) -> dict[str, torch.Tensor]:
+        """Seeded fp32 parameters on the task's device (numpy RNG, see
+        ``weights.random_state_dict``)."""
+        sd = random_state_dict(self.model, seed)
+        return {k: v.to(self.device) for k, v in sd.items()}
+
+    def features(self, audio, audio_lens, cmvn_mean=None, cmvn_std=None, *,
+                 generator: torch.Generator | None = None,
+                 train: bool = False):
         """[B, S] audio -> ([B, F, D] features, [B] int32 lengths) under the
         configured CMVN: utterance, none, global (corpus stats) or speaker
-        (per-row mean/std; without them, utterance)."""
+        (per-row mean/std; without them, utterance). With ``train`` and a
+        generator: dither before K1 and SpecAugment after CMVN."""
         f = self.cfg.frontend
+        if train and f.dither and generator is not None:
+            audio = audio + f.dither * torch.randn(
+                audio.shape, generator=generator, device=audio.device)
         if f.cmvn == "speaker" and cmvn_mean is not None:
             feats, feat_lens = self._raw_fbank(audio, audio_lens, "none")
             mask = make_non_pad_mask(feat_lens, feats.shape[1])[..., None]
@@ -86,11 +131,68 @@ class ASRTask:
         else:
             cm = "utterance" if f.cmvn == "speaker" else f.cmvn
             feats, feat_lens = self._raw_fbank(audio, audio_lens, cm)
-        return feats, feat_lens
+        return self._maybe_specaug(feats, feat_lens, generator, train), \
+            feat_lens
+
+    def _maybe_specaug(self, feats, feat_lens, generator, train: bool):
+        if train and self.cfg.specaug.enabled and generator is not None:
+            sa = self.cfg.specaug
+            feats = spec_augment(
+                generator, feats, feat_lens,
+                num_freq_masks=sa.num_freq_masks,
+                freq_mask_width=sa.freq_mask_width,
+                num_time_masks=sa.num_time_masks,
+                time_mask_width=sa.time_mask_width,
+                time_mask_max_ratio=sa.time_mask_max_ratio,
+                time_warp=sa.time_warp)
+        return feats
 
     def _raw_fbank(self, audio, audio_lens, cmvn: str):
         return log_mel_fbank(audio, audio_lens, self.fbank_params, cmvn=cmvn,
                              cmvn_norm_var=self.cfg.frontend.cmvn_norm_var)
+
+    def preprocess(self, batch: dict, generator=None,
+                   train: bool = False) -> dict:
+        """Audio batch -> feature batch (fbank + CMVN + SpecAugment). In
+        meta-training this runs once per task batch, outside the inner
+        loop. Feature batches pass through (SpecAugment still applies in
+        training)."""
+        if "feats" in batch:
+            feats = self._maybe_specaug(batch["feats"], batch["feat_lens"],
+                                        generator, train)
+            feat_lens = batch["feat_lens"]
+        else:
+            feats, feat_lens = self.features(
+                batch["audio"], batch["audio_lens"], batch.get("cmvn_mean"),
+                batch.get("cmvn_std"), generator=generator, train=train)
+        return {"feats": feats, "feat_lens": feat_lens,
+                "tokens": batch["tokens"], "token_lens": batch["token_lens"]}
+
+    def loss_fn(self, params: dict, batch: dict, generator=None,
+                train: bool = False):
+        """-> (scalar loss, metrics). Differentiable w.r.t. ``params``.
+        Takes raw-audio batches (features computed inline) or feature
+        batches (key 'feats', used as they are: augmentation is
+        ``preprocess``'s job)."""
+        if train and generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        if "feats" in batch:
+            feats, feat_lens = batch["feats"], batch["feat_lens"]
+        else:
+            feats, feat_lens = self.features(
+                batch["audio"], batch["audio_lens"], batch.get("cmvn_mean"),
+                batch.get("cmvn_std"), generator=generator, train=train)
+        tokens, token_lens = batch["tokens"], batch["token_lens"]
+        tokens_in, _, _ = prepare_decoder_targets(
+            tokens.to(torch.int64), token_lens, self.sos_eos_id)
+        outputs = torch.func.functional_call(
+            self.model, params, (feats, feat_lens, tokens_in, token_lens + 1),
+            {"train": train, "generator": generator})
+        m = self.cfg.model
+        return joint_ctc_attention_loss(
+            outputs, tokens, token_lens, self.sos_eos_id,
+            ctc_weight=m.ctc_weight, label_smoothing=m.label_smoothing,
+            ctc_loss_fn=self._ctc_loss)
 
     @staticmethod
     def _greedy_from_feats(model: TransformerASR, feats, feat_lens):

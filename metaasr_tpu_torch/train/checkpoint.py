@@ -1,0 +1,88 @@
+"""Checkpoints on ``torch.save`` (counterpart of
+``metaasr_tpu/train/checkpoint.py``, which uses orbax).
+
+The same policy: the whole train state (parameters, optimizer state, step,
+seed, best metric) is saved per step as ``step_<N>.pt``, the newest ``keep``
+are kept, and ``best/state.pt`` holds the best-by-metric state. Writes go to
+a temporary file first and are renamed into place, so a reader never sees
+half a file. ``save_params_npz``/``load_params_npz`` exchange parameters in
+the reference's flat Flax layout (``weights.params_to_flax``), the format
+``--serve-params`` reads.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any
+
+import numpy as np
+import torch
+
+from metaasr_tpu_torch.weights import flatten_tree, params_to_flax, unflatten
+
+_STEP = re.compile(r"step_(\d+)\.pt$")
+
+
+def _atomic_save(obj, path: str) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+class CheckpointManager:
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = os.path.abspath(ckpt_dir)
+        self.keep = keep
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self._best = os.path.join(self.ckpt_dir, "best", "state.pt")
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(m.group(1)) for f in os.listdir(self.ckpt_dir)
+                      if (m := _STEP.match(f)))
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.ckpt_dir, f"step_{step}.pt")
+
+    def save(self, step: int, state: Any, is_best: bool = False) -> None:
+        _atomic_save(state, self._path(step))
+        if is_best:
+            os.makedirs(os.path.dirname(self._best), exist_ok=True)
+            _atomic_save(state, self._best)
+        for old in self.all_steps()[:-self.keep] if self.keep > 0 else []:
+            os.remove(self._path(old))
+
+    def restore(self, state_template: Any = None, step: int | None = None,
+                map_location=None) -> tuple[Any, int]:
+        """The latest (or a given step's) state -> (state, step);
+        (template, -1) when nothing is saved. Tensors land on
+        ``map_location`` (default: where they were saved)."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return state_template, -1
+        return torch.load(self._path(step), map_location=map_location,
+                          weights_only=True), step
+
+    def restore_best(self, map_location=None) -> Any:
+        if not os.path.exists(self._best):
+            return None
+        return torch.load(self._best, map_location=map_location,
+                          weights_only=True)
+
+
+def save_params_npz(path: str, params: dict, num_heads: int) -> None:
+    """Flat ``a/b/c`` npz in the reference's Flax layout (plain or Meta-SGD
+    tree), readable by both packages' ``load_params_npz`` and by
+    ``--serve-params``."""
+    np.savez(path, **flatten_tree(params_to_flax(params, num_heads)))
+
+
+def load_params_npz(path: str) -> dict:
+    """Inverse of :func:`save_params_npz`: the nested Flax-layout dict of
+    numpy arrays (``weights.flax_to_params`` makes tensors of it)."""
+    with np.load(path) as z:
+        return unflatten({k: np.asarray(z[k]) for k in z.files})

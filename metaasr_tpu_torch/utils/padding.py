@@ -20,3 +20,11 @@ def subsampled_lengths(lengths: torch.Tensor, factor: int = 4) -> torch.Tensor:
         out = torch.div(out - 1, 2, rounding_mode="floor")
         f //= 2
     return torch.clamp(out, min=1)
+
+
+def bucket_length(n: int, buckets: tuple[int, ...]) -> int:
+    """Smallest bucket >= n (the largest when none fits)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]

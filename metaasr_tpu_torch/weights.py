@@ -19,6 +19,10 @@ any ``bias``                  ``bias``                     flatten
 LayerNorm ``scale``           ``weight``
 Embed ``embedding``           ``weight``
 ============================  ===========================  =================
+
+A Meta-SGD tree ``{"model": ..., "inner_lr": ...}`` (one learned inner rate
+per model leaf) converts both ways too: the rates keep their scalar values
+and take their leaf's name (:func:`params_to_flax`, :func:`flax_to_params`).
 """
 
 from __future__ import annotations
@@ -93,6 +97,58 @@ def flax_to_state_dict(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _flax_parts(key: str) -> list[str]:
+    """Port key -> the Flax module path (without the leaf name)."""
+    names = key.split(".")
+    parts = []
+    i = 0
+    while i < len(names) - 1:
+        if names[i] == "layers":
+            parts.append(f"layer_{names[i + 1]}")
+            i += 2
+        else:
+            parts.append(_RENAME_BACK.get(names[i], names[i]))
+            i += 1
+    return parts
+
+
+def _flax_leaf(key: str) -> str:
+    names = key.split(".")
+    module, leaf = names[-2], names[-1]
+    if module.startswith("norm") or module == "final_norm":
+        return "scale" if leaf == "weight" else "bias"
+    if module == "embed":
+        return "embedding"
+    return "bias" if leaf == "bias" else "kernel"
+
+
+def flax_path(key: str) -> str:
+    """Port parameter name -> the reference's '/'-joined Flax path, e.g.
+    ``encoder.layers.0.ff.fc1.weight`` -> ``encoder/layer_0/ff/Dense_0/
+    kernel`` (what ``adapt_filter`` patterns match against)."""
+    return "/".join(_flax_parts(key) + [_flax_leaf(key)])
+
+
+def params_to_flax(params: dict, num_heads: int) -> dict:
+    """The port's parameters (a state_dict, or a Meta-SGD tree of one) ->
+    the Flax layout (nested dicts of fp32 numpy)."""
+    if set(params) == {"model", "inner_lr"}:
+        rates = {flax_path(k): np.asarray(v.detach().to("cpu", torch.float32))
+                 for k, v in params["inner_lr"].items()}
+        return {"model": state_dict_to_flax(params["model"], num_heads),
+                "inner_lr": unflatten(rates)}
+    return state_dict_to_flax(params, num_heads)
+
+
+def flax_to_params(tree: dict) -> dict:
+    """Inverse of :func:`params_to_flax` (fp32 tensors on the CPU)."""
+    if set(tree) == {"model", "inner_lr"}:
+        rates = {_port_key(k.split("/")): torch.tensor(a, dtype=torch.float32)
+                 for k, a in flatten_tree(tree["inner_lr"]).items()}
+        return {"model": flax_to_state_dict(tree["model"]), "inner_lr": rates}
+    return flax_to_state_dict(tree)
+
+
 def state_dict_to_flax(sd: dict[str, torch.Tensor], num_heads: int) -> dict:
     """Inverse of :func:`flax_to_state_dict` (nested dict of fp32 numpy)."""
     flat = {}
@@ -100,15 +156,7 @@ def state_dict_to_flax(sd: dict[str, torch.Tensor], num_heads: int) -> dict:
         a = t.detach().to("cpu", torch.float32).numpy()
         names = key.split(".")
         module, leaf = names[-2], names[-1]
-        parts = []
-        i = 0
-        while i < len(names) - 1:
-            if names[i] == "layers":
-                parts.append(f"layer_{names[i + 1]}")
-                i += 2
-            else:
-                parts.append(_RENAME_BACK.get(names[i], names[i]))
-                i += 1
+        parts = _flax_parts(key)
         if module.startswith("conv"):
             if leaf == "bias":
                 flat["/".join(parts + ["bias"])] = a

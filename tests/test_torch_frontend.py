@@ -171,7 +171,9 @@ def test_port_imports_neither_jax_nor_reference_package():
         " or k == 'metaasr_tpu' or k.startswith('metaasr_tpu.'))\n"
         "print(len(mods), bad)\n"
         "assert not bad, bad\n"
-        "assert 'metaasr_tpu_torch.serve.batcher' in mods, mods\n")
+        "for m in ('serve.batcher', 'ops.ctc_kernel', 'meta.maml',\n"
+        "          'train.meta_train', 'data.sampler'):\n"
+        "    assert 'metaasr_tpu_torch.' + m in mods, mods\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
