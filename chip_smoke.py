@@ -44,6 +44,30 @@ Phases, one JSON line each; any failure exits non-zero:
              accent, the adapted npz hot-swapped into a ServingDecoder that
              serves one utterance; exact launch counts.
 
+8. lstm_kernel — K3 (LSTM recurrence) and K3b (its BPTT and the dU
+             product) against their plain PyTorch versions, through the
+             autograd Function, at [T, B, H] = [99, 16, 320] (config1),
+             [64, 8, 128], an unaligned [37, 5, 96] and a long [400, 4, 320]:
+             forward max |diff| <= 1e-5, dgx / dU l2rel <= 1e-3. CUDA-event
+             medians of K3, K3b and the plain versions at the config1 shape,
+             and as the library yardstick ``torch.nn.LSTM`` (cuDNN, +1 folded
+             into the forget bias; it includes the input projection) forward
+             and forward + backward at [99, 16, 640 -> 320] beside K3 +
+             F.linear for the same layer.
+9. mono_step — the config1-width VGG-BLSTM CTC step (VGG 64/128, 4 x BLSTM
+             320, fp32, Adadelta lr 1.0, clip 5, SpecAugment on) through
+             ``MonoASRTrainer.step``: batch 16 x 64,000 samples, 32 phone
+             tokens; 2 warm-up, 5 timed, 1 profiled step; every loss finite,
+             exactly 8 K3 + 8 K3b + 1 K1 + 1 K2 launches per step. Before
+             it, a small model's loss and gradients on cuda against the cpu
+             (loss rtol 1e-4, gradient leaves l2rel <= 1e-3).
+10. mono_entry — a synthetic corpus with phone transcripts through the CLI's
+             ``make_trainer`` (algo no, config1 width): 120 steps, a dev
+             evaluation every 40 (greedy CTC, CER/WER), best checkpoint
+             written and restored, a greedy bundle written and served by
+             ``ServingDecoder`` (a full batch of 16 and one utterance);
+             exact launch counts (serving: 8 K3 per request, 0 K3b).
+
 Then a ``{"kernels": [...]}`` line (time, bound, launches on the main
 paths per kernel) and the last line ``{"ok": true, "device": {...}}``.
 TF32 is off throughout (the reference pins fp32 HIGHEST in the front-end).
@@ -238,11 +262,15 @@ def seeded_bundle(cfg, tok, out_dir, buckets, seed):
 
 
 def check_results(results, n, tok):
+    from metaasr_tpu_torch.data.tokenizer import PhoneTokenizer
+
     if len(results) != n:
         raise SystemExit(f"expected {n} results, got {len(results)}")
     symbols = set(tok.symbols)
     for r in results:
-        if not (isinstance(r["text"], str) and set(r["text"]) <= symbols
+        units = (r["text"].split() if isinstance(tok, PhoneTokenizer)
+                 else r["text"])
+        if not (isinstance(r["text"], str) and set(units) <= symbols
                 and math.isfinite(r["score"]) and r["score"] > NEG / 2):
             raise SystemExit(f"malformed result {r}")
 
@@ -665,6 +693,401 @@ def phase_train_entry(torch):
     return out
 
 
+# ------------------------------------------------------------ K3 / K3b ----
+
+LSTM_SHAPES = {"config1": (99, 16, 320), "chip_check": (64, 8, 128),
+               "unaligned": (37, 5, 96), "long_t": (400, 4, 320)}
+LSTM_FWD_TOL = 1e-5      # max |diff| of h_seq
+LSTM_GRAD_L2REL = 1e-3   # scripts/kernel_check.py's bar for the TPU kernel
+
+
+def lstm_inputs(torch, shape, seed):
+    """gx ~ N(0, 1), u with orthonormal rows (the model's init), and a
+    cotangent for h_seq, all on the card."""
+    t_len, bsz, hidden = shape
+    rng = np.random.default_rng(seed)
+    gx = rng.standard_normal((t_len, bsz, 4 * hidden)).astype(np.float32)
+    q, _ = np.linalg.qr(rng.standard_normal((4 * hidden, hidden)))
+    dout = rng.standard_normal((t_len, bsz, hidden)).astype(np.float32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
+    return to(gx), to(q.T), to(dout)
+
+
+def l2rel(torch, a, b) -> float:
+    return float(torch.linalg.norm(a - b)
+                 / torch.linalg.norm(b).clamp_min(1e-30))
+
+
+def phase_lstm_kernel(torch, peaks):
+    import torch.nn.functional as F
+
+    from metaasr_tpu_torch.ops import lstm_kernel as lk
+
+    peak_flops, peak_bw = peaks
+    res = {"phase": "lstm_kernel", "fwd_tol": LSTM_FWD_TOL,
+           "grad_l2rel_tol": LSTM_GRAD_L2REL, "shapes": {}}
+    ok = True
+    for i, (name, shape) in enumerate(LSTM_SHAPES.items()):
+        gx, u, dout = lstm_inputs(torch, shape, seed=20 + i)
+        gx_g = gx.clone().requires_grad_(True)
+        u_g = u.clone().requires_grad_(True)
+        before = (lk.lstm_recurrence.launches, lk.lstm_recurrence.bwd_launches)
+        h = lk.lstm_recurrence(gx_g, u_g)          # the autograd Function
+        (h * dout).sum().backward()
+        torch.cuda.synchronize()
+        counted = (lk.lstm_recurrence.launches - before[0],
+                   lk.lstm_recurrence.bwd_launches - before[1])
+        p_h, p_c = lk.plain_lstm_forward(gx, u)
+        p_dgx, p_du = lk.plain_lstm_backward(gx, u, p_h, p_c, dout)
+        entry = {"shape_tbh": list(shape),
+                 "fwd_max_abs_diff": float((h.detach() - p_h).abs().max()),
+                 "dgx_l2rel": l2rel(torch, gx_g.grad, p_dgx),
+                 "du_l2rel": l2rel(torch, u_g.grad, p_du),
+                 "dgx_max_abs_diff": float((gx_g.grad - p_dgx).abs().max()),
+                 "du_max_abs_diff": float((u_g.grad - p_du).abs().max()),
+                 "launches_counted": list(counted)}
+        ok = (ok and entry["fwd_max_abs_diff"] <= LSTM_FWD_TOL
+              and entry["dgx_l2rel"] <= LSTM_GRAD_L2REL
+              and entry["du_l2rel"] <= LSTM_GRAD_L2REL and counted == (1, 1))
+        if name in ("config1", "long_t"):
+            t_len, bsz, hidden = shape
+            h_seq, c_seq = lk.lstm_forward(gx, u)
+            entry["fwd_ms"] = cuda_median_ms(
+                torch, lambda: lk.lstm_forward(gx, u))
+            entry["bwd_ms"] = cuda_median_ms(
+                torch, lambda: lk.lstm_backward(gx, u, h_seq, c_seq, dout))
+            entry["plain_fwd_ms"] = cuda_median_ms(
+                torch, lambda: lk.plain_lstm_forward(gx, u), runs=10, warmup=2)
+            entry["plain_bwd_ms"] = cuda_median_ms(
+                torch, lambda: lk.plain_lstm_backward(gx, u, p_h, p_c, dout),
+                runs=10, warmup=2)
+            # the reference's own operation counts (lstm_pallas.py:155, 207)
+            # and every array once
+            cell = t_len * bsz * hidden
+            for tag, flops, floats in (
+                    ("fwd", 2 * cell * 4 * hidden,
+                     cell * 4 + 4 * hidden * hidden + 2 * cell),
+                    ("bwd", 6 * cell * 4 * hidden,
+                     cell * (4 + 3 + 4) + 2 * 4 * hidden * hidden)):
+                t_ops, t_bytes = flops / peak_flops, 4 * floats / peak_bw
+                entry[f"{tag}_bound_ms"] = 1e3 * max(t_ops, t_bytes)
+                entry[f"{tag}_bound_by"] = ("operations" if t_ops >= t_bytes
+                                            else "bytes")
+                entry[f"{tag}_us_per_dependent_step"] = \
+                    1e3 * entry[f"{tag}_ms"] / t_len
+            entry["dependent_steps"] = t_len
+        res["shapes"][name] = entry
+
+    # the library yardstick: one BLSTM direction of config1's layers 2-4,
+    # [99, 16, 640 -> 320]; nn.LSTM (cuDNN) includes the input projection
+    t_len, bsz, hidden = LSTM_SHAPES["config1"]
+    d_in = 2 * hidden
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.standard_normal(
+        (t_len, bsz, d_in)).astype(np.float32)).to(DEVICE)
+    w = torch.from_numpy((rng.standard_normal((4 * hidden, d_in))
+                          / np.sqrt(d_in)).astype(np.float32)).to(DEVICE)
+    b = torch.from_numpy((0.02 * rng.standard_normal(
+        4 * hidden)).astype(np.float32)).to(DEVICE)
+    _, u, dout = lstm_inputs(torch, LSTM_SHAPES["config1"], seed=31)
+    lib = torch.nn.LSTM(d_in, hidden).to(DEVICE)
+    forget = torch.zeros(4 * hidden, device=DEVICE)
+    forget[hidden: 2 * hidden] = 1.0
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(w)
+        lib.weight_hh_l0.copy_(u.t())
+        lib.bias_ih_l0.copy_(b + forget)
+        lib.bias_hh_l0.zero_()
+    params = [w, b, u]
+
+    def ours(train):
+        for p in params:
+            p.requires_grad_(train)
+            p.grad = None
+        out = lk.lstm_recurrence(F.linear(x, w, b), u)
+        if train:
+            (out * dout).sum().backward()
+        return out
+
+    def library(train):
+        for p in lib.parameters():
+            p.requires_grad_(train)
+            p.grad = None
+        out, _ = lib(x)
+        if train:
+            (out * dout).sum().backward()
+        return out
+
+    with torch.no_grad():
+        yard_diff = float((ours(False) - library(False)).abs().max())
+    res["library_yardstick"] = {
+        "what": "torch.nn.LSTM (cuDNN), +1 folded into the forget bias; "
+                "includes the input projection x @ W + b",
+        "shape": [t_len, bsz, d_in, hidden],
+        "max_abs_diff_to_kernel_layer": yard_diff,
+        "nn_lstm_fwd_ms": cuda_median_ms(torch, lambda: library(False)),
+        "nn_lstm_fwd_bwd_ms": cuda_median_ms(torch, lambda: library(True)),
+        "kernel_layer_fwd_ms": cuda_median_ms(torch, lambda: ours(False)),
+        "kernel_layer_fwd_bwd_ms": cuda_median_ms(torch, lambda: ours(True))}
+    log(res)
+    if not ok:
+        raise SystemExit("K3/K3b disagree with their plain versions")
+    if not yard_diff <= 1e-4:
+        raise SystemExit("the kernel layer disagrees with torch.nn.LSTM")
+    return res
+
+
+# -------------------------------------------------- the baseline path ----
+
+def config1():
+    """configs/config1_mono_vgg_ctc.yaml at full width: VGG 64/128, 4 x
+    BLSTM 320, fp32, phone vocabulary, Adadelta lr 1.0, batch 16, algo no
+    (SpecAugment on, as the config leaves the default)."""
+    from metaasr_tpu_torch.config import Config
+
+    cfg = Config()
+    m = cfg.model
+    m.arch, m.blstm_hidden, m.blstm_layers = "vgg_blstm", 320, 4
+    m.vgg_channels, m.dtype = (64, 128), "float32"
+    cfg.meta.algo = "no"
+    cfg.data.vocab, cfg.data.batch_size = "phone", 16
+    o = cfg.optimizer
+    o.name, o.lr, o.schedule = "adadelta", 1.0, "constant"
+    return cfg
+
+
+def lstm_counts():
+    from metaasr_tpu_torch.frontend.fbank_kernel import fused_log_mel
+    from metaasr_tpu_torch.ops.ctc_kernel import ctc_alpha_beta
+    from metaasr_tpu_torch.ops.lstm_kernel import lstm_recurrence
+
+    return {"k1": fused_log_mel.launches, "k2": ctc_alpha_beta.launches,
+            "k3": lstm_recurrence.launches,
+            "k3b": lstm_recurrence.bwd_launches}
+
+
+def zero_counts():
+    from metaasr_tpu_torch.frontend.fbank_kernel import fused_log_mel
+    from metaasr_tpu_torch.ops.ctc_kernel import ctc_alpha_beta
+    from metaasr_tpu_torch.ops.lstm_kernel import lstm_recurrence
+
+    fused_log_mel.launches = ctc_alpha_beta.launches = 0
+    lstm_recurrence.launches = lstm_recurrence.bwd_launches = 0
+
+
+def small_model_parity(torch):
+    """A small VGG-BLSTM's loss and gradients on cuda against the cpu (the
+    kernels against the plain versions, through the whole loss)."""
+    from metaasr_tpu_torch.task import ASRTask
+
+    cfg = config1()
+    m = cfg.model
+    m.blstm_hidden, m.blstm_layers, m.vgg_channels = 32, 2, (8, 16)
+    m.vocab_size = 12
+    cfg.specaug.enabled = False
+    rng = np.random.default_rng(40)
+    lens = np.array([16000, 11000, 6000, 16000], np.int32)
+    batch = {"audio": make_waves(rng, lens, 16000), "audio_lens": lens,
+             "tokens": rng.integers(1, 11, (4, 6)).astype(np.int32),
+             "token_lens": np.array([6, 4, 2, 5], np.int32)}
+    out = {}
+    for dev in ("cpu", DEVICE):
+        task = ASRTask(cfg, device=dev)
+        params = {k: v.requires_grad_(True)
+                  for k, v in task.init_params(3).items()}
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, _ = task.loss_fn(params, tb)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[dev] = (float(loss.detach()),
+                    {k: g.cpu() for k, g in zip(params, grads)})
+    (want, want_g), (got, got_g) = out["cpu"], out[DEVICE]
+    worst = max(l2rel(torch, got_g[k], want_g[k]) for k in want_g)
+    res = {"loss_cpu": want, "loss_cuda": got,
+           "worst_grad_leaf_l2rel": worst}
+    if not (abs(got - want) <= 1e-4 * abs(want) and worst <= 1e-3):
+        log({"phase": "mono_step", "parity_small": res})
+        raise SystemExit("cuda and cpu disagree on the VGG-BLSTM loss")
+    return res
+
+
+def phase_mono_step(torch):
+    from metaasr_tpu_torch.data.tokenizer import PhoneTokenizer
+    from metaasr_tpu_torch.task import ASRTask
+    from metaasr_tpu_torch.train.mono import MonoASRTrainer
+
+    parity = small_model_parity(torch)
+    cfg = config1()
+    tok = PhoneTokenizer.arpabet_default()
+    cfg.model.vocab_size = tok.vocab_size
+    bsz, width, n_tok = cfg.data.batch_size, 64000, 32
+    rng = np.random.default_rng(0)
+    batch = {"audio": (0.1 * rng.standard_normal(
+                 (bsz, width))).astype(np.float32),
+             "audio_lens": np.full((bsz,), width, np.int32),
+             "tokens": rng.integers(1, tok.vocab_size - 1,
+                                    (bsz, n_tok)).astype(np.int32),
+             "token_lens": np.full((bsz,), n_tok, np.int32)}
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    warmup, timed = 2, 5
+    with tempfile.TemporaryDirectory() as d:
+        task = ASRTask(cfg, tok.sos_eos_id, device=DEVICE)
+        trainer = MonoASRTrainer(cfg, task, [], None, tok, d, device=DEVICE)
+        st = {"state": trainer.init_state()}
+        n_params = sum(v.numel() for v in st["state"]["params"].values())
+        losses = []
+
+        def one_step():
+            st["state"], metrics = trainer.step(st["state"], batch)
+            losses.append(metrics["loss"])
+
+        zero_counts()
+        for _ in range(warmup):
+            one_step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            one_step()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated()
+        prof = device_busy(torch, one_step)
+        counts = lstm_counts()
+    steps = warmup + timed + 1
+    layers = 2 * cfg.model.blstm_layers
+    want = {"k1": steps, "k2": steps, "k3": steps * layers,
+            "k3b": steps * layers}
+    ms = statistics.median(times)
+    loss_vals = [float(x) for x in losses]
+    out = {"phase": "mono_step", "parity_small": parity,
+           "model": {"arch": "vgg_blstm", "vgg_channels": [64, 128],
+                     "blstm_hidden": 320, "blstm_layers": 4,
+                     "vocab": tok.vocab_size, "dtype": "float32",
+                     "parameters": n_params},
+           "optimizer": "adadelta lr 1.0, clip 5.0", "specaug": True,
+           "batch": [bsz, width], "tokens": n_tok,
+           "lstm_shape_tbh": [99, bsz, 320], "steps": steps,
+           "ms_per_step": ms, "ms_per_step_all": times,
+           "utts_per_s": bsz / (ms / 1e3), "peak_mem_gb": peak / 1e9,
+           "profiled_step": {"wall_ms": prof[0], "device_busy_ms": prof[1],
+                             "cuda_kernels": prof[2],
+                             "top_kernels_ms": prof[3]},
+           "device_busy_share": None if prof[1] is None else prof[1] / ms,
+           "launches": counts, "launches_expected": want, "loss": loss_vals}
+    log(out)
+    if not all(math.isfinite(v) for v in loss_vals):
+        raise SystemExit("non-finite loss in the VGG-BLSTM step")
+    if counts != want:
+        raise SystemExit(f"mono step launch counts {counts}, want {want}")
+    return out
+
+
+def phase_mono_entry(torch):
+    """train -> evaluate -> best checkpoint -> greedy bundle -> serve,
+    through the entry points a user calls, at config1 width."""
+    from metaasr_tpu_torch.cli import make_trainer
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+    from metaasr_tpu_torch.serve.export import ServingDecoder, write_bundle
+    from metaasr_tpu_torch.weights import params_to_flax
+
+    cfg = config1()
+    steps, eval_every = 120, 40
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "data")
+        generate_dataset(data, accents=("alpha",), utts_per_accent=96,
+                         words_per_utt=(2, 4), seed=1)
+        cfg.data.data_dir = data
+        cfg.data.dev_fraction = 0.2
+        cfg.train.log_every = 10
+        cfg.train.eval_every, cfg.train.ckpt_every = eval_every, 1000
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer, tok = make_trainer(cfg, os.path.join(d, "wd"), DEVICE)
+        state = trainer.train(max_steps=steps)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        with open(os.path.join(d, "wd", "logs", "scalars.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        train_recs = [r for r in recs if "loss" in r]
+        dev_recs = [r for r in recs if "dev_wer" in r]
+        samples = [r["text"] for r in recs if "tag" in r][:2]
+        trained = lstm_counts()
+        restored, at = trainer.ckpt.restore(map_location=DEVICE)
+        restored_equal = at == steps and all(
+            torch.equal(restored["params"][k], v)
+            for k, v in state["params"].items())
+        best = trainer.ckpt.restore_best(map_location=DEVICE)
+        with open(os.path.join(trainer.ckpt.ckpt_dir, "best",
+                               "metrics.json")) as f:
+            best_metrics = json.load(f)
+        # the restored best state scores what its evaluation logged
+        rescored = trainer.evaluate(best["params"], trainer.dev_dataset)
+        evaluated = lstm_counts()
+        bsz = cfg.data.batch_size
+        bundle = os.path.join(d, "bundle")
+        manifest = write_bundle(bundle, cfg, params_to_flax(state["params"], 1),
+                                tok, [(bsz, 64000), (1, 64000)])
+        dec = ServingDecoder(bundle, cfg, device=DEVICE)
+        dev_set = trainer.dev_dataset
+        waves = [dev_set[i]["audio"] for i in range(bsz)]
+        refs = [dev_set.transcript(i) for i in range(bsz)]
+        t0 = time.perf_counter()
+        served = dec.transcribe(waves)
+        torch.cuda.synchronize()
+        serve_ms = 1e3 * (time.perf_counter() - t0)
+        single = dec.transcribe(waves[3:4])
+        torch.cuda.synchronize()
+        final = lstm_counts()
+        n_dev, n_train = len(dev_set), len(trainer.train_datasets[0])
+        ckpt_steps = trainer.ckpt.all_steps()
+    layers = 2 * cfg.model.blstm_layers
+    evals = steps // eval_every
+    eval_batches = -(-min(n_dev, 200) // bsz)
+    want_train = {"k1": steps + evals * eval_batches, "k2": steps,
+                  "k3": layers * (steps + evals * eval_batches),
+                  "k3b": layers * steps}
+    want_final = {"k1": want_train["k1"] + eval_batches + 2, "k2": steps,
+                  "k3": want_train["k3"] + layers * (eval_batches + 2),
+                  "k3b": layers * steps}
+    dev_wers = [r["dev_wer"] for r in dev_recs]
+    out = {"phase": "mono_entry", "train_utts": n_train, "dev_utts": n_dev,
+           "vocab": tok.vocab_size, "steps": state["step"],
+           "train_s": train_s, "loss": [r["loss"] for r in train_recs],
+           "utts_per_sec_logged": [r["utts_per_sec"] for r in train_recs],
+           "dev": [{"step": r["step"], "wer": r["dev_wer"],
+                    "cer": r["dev_cer"]} for r in dev_recs],
+           "text_samples": samples,
+           "ckpt_steps": ckpt_steps,
+           "restored_equal": restored_equal,
+           "best": {"step": best["step"], "metric": best["best_metric"],
+                    "metrics_file": best_metrics, "rescored": rescored},
+           "bundle_mode": manifest["mode"], "serve_ms_full_batch": serve_ms,
+           "served_sample": {"hyp": served[0]["text"], "ref": refs[0]},
+           "served_single": single[0],
+           "launches_after_train": trained, "launches_expected_after_train":
+           want_train, "launches": final, "launches_expected": want_final}
+    log(out)
+    if not (state["step"] == steps and restored_equal
+            and len(dev_recs) == evals
+            and all(math.isfinite(r["loss"]) for r in train_recs)
+            and all(0.0 <= w and math.isfinite(w) for w in dev_wers)):
+        raise SystemExit("mono train / evaluate / checkpoint failed")
+    if not (best["best_metric"] == min(dev_wers) == best_metrics["wer"]
+            and rescored["wer"] == best_metrics["wer"]
+            and rescored["cer"] == best_metrics["cer"]):
+        raise SystemExit("the best checkpoint does not score its own metric")
+    if manifest["mode"] != "greedy" or evaluated["k3b"] != layers * steps:
+        raise SystemExit("greedy bundle or evaluation went wrong")
+    check_results(served, bsz, tok)
+    check_results(single, 1, tok)
+    if single[0]["text"] != served[3]["text"]:
+        raise SystemExit("single-utterance serving disagrees with the batch")
+    if trained != want_train or final != want_final:
+        raise SystemExit(f"mono entry launch counts {trained} / {final}, "
+                         f"want {want_train} / {want_final}")
+    return out
+
 
 def main() -> int:
     import torch
@@ -691,14 +1114,44 @@ def main() -> int:
     k2 = phase_ctc_kernel(torch, peaks)
     meta = phase_meta_step(torch)
     entry = phase_train_entry(torch)
+    k3 = phase_lstm_kernel(torch, peaks)
+    mono = phase_mono_step(torch)
+    mono_entry = phase_mono_entry(torch)
+    mono_paths = lambda k: {"mono_step": mono["launches"][k],  # noqa: E731
+                            "mono_entry": mono_entry["launches"][k]}
     k1_paths = {"serving": serving["k1_launches"],
                 **{f"meta_step_{c['tasks']}x{c['shots']}": c["k1_launches"]
                    for c in meta["cells"]},
-                "train_entry": entry["k1_launches"]}
+                "train_entry": entry["k1_launches"], **mono_paths("k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
-                "train_entry": entry["k2_launches"]}
+                "train_entry": entry["k2_launches"], **mono_paths("k2")}
     k2_task = k2["shapes"]["per_task"]
+    k3_shapes = k3["shapes"]
+    k3_main = k3_shapes["config1"]
+    yard = k3["library_yardstick"]
+    lstm_rows = [{
+        "name": name, "route": "cuda",
+        "source": "metaasr_tpu_torch/csrc/lstm.cu",
+        "replaces": f"metaasr_tpu/ops/lstm_pallas.py:{line}",
+        "launches": sum(mono_paths(key).values()),
+        "launches_by_path": mono_paths(key),
+        "max_abs_err": max(e[err] for e in k3_shapes.values()),
+        "shape_tbh": k3_main["shape_tbh"], "ms": k3_main[f"{tag}_ms"],
+        "plain_ms": k3_main[f"plain_{tag}_ms"],
+        "bound_ms": k3_main[f"{tag}_bound_ms"],
+        "bound_by": k3_main[f"{tag}_bound_by"],
+        "dependent_steps": k3_main["dependent_steps"],
+        "library_ms": yard[lib_key], "library_is": lib_what, **extra}
+        for name, line, key, err, tag, lib_key, lib_what, extra in (
+            ("lstm_forward", 48, "k3", "fwd_max_abs_diff", "fwd",
+             "nn_lstm_fwd_ms",
+             "nn.LSTM forward, input projection included", {}),
+            ("lstm_backward", 71, "k3b", "dgx_max_abs_diff", "bwd",
+             "nn_lstm_fwd_bwd_ms",
+             "nn.LSTM forward + backward, input projection included",
+             {"dgx_l2rel": max(e["dgx_l2rel"] for e in k3_shapes.values()),
+              "du_l2rel": max(e["du_l2rel"] for e in k3_shapes.values())}))]
     log({"kernels": [{
         "name": "fbank_log_mel", "route": "cuda",
         "source": "metaasr_tpu_torch/csrc/fbank.cu",
@@ -717,7 +1170,7 @@ def main() -> int:
         "shape_btuv": k2_task["shape_btuv"], "ms": k2_task["ms"],
         "plain_ms": k2_task["plain_ms"], "bound_ms": k2_task["bound_ms"],
         "bound_by": k2_task["bound_by"],
-        "library_ms": k2_task["library_ms"]}]})
+        "library_ms": k2_task["library_ms"]}, *lstm_rows]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

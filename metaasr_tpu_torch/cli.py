@@ -2,15 +2,21 @@
 
     python -m metaasr_tpu_torch.cli --mode train \
         --config configs/config3_fomaml.yaml --data-dir DIR --workdir WD \
-        [--algo fomaml|reptile] [--max-steps N] [--seed N] [-o key=value]
+        [--algo no|multi|fomaml|reptile] [--max-steps N] [--seed N]
+        [-o key=value]
 
     python -m metaasr_tpu_torch.cli --mode serve --bundle DIR \
         --config configs/config3_fomaml.yaml --wav a.wav [b.wav ...]
 
-``train`` meta-trains on the accents of ``--data-dir`` (``<accent>.jsonl``
+``train`` trains on the accents of ``--data-dir`` (``<accent>.jsonl``
 manifests, e.g. from ``data.synthetic.generate_dataset``), checkpointing
-under ``<workdir>/ckpts``. ``serve`` transcribes with a bundle the JAX
-package exported (``--mode export``) or ``serve.export.write_bundle`` wrote;
+under ``<workdir>/ckpts``: meta-training for the algos fomaml and reptile,
+the single-accent baseline for ``no`` (e.g. ``configs/
+config1_mono_vgg_ctc.yaml``, the VGG-BLSTM CTC phone recognizer) and pooled
+multi-accent training for ``multi``, both with periodic dev evaluation
+(``train.eval_every``, ``data.dev_fraction``). ``serve`` transcribes with a
+bundle the JAX package exported (``--mode export``) or
+``serve.export.write_bundle`` wrote;
 ``--config`` supplies what the bundle does not record (model dims and dtype,
 CMVN mode, beam options). Both run on CUDA unless ``--device cpu`` is given.
 """
@@ -36,30 +42,60 @@ def _parse_override(kv: str):
     return key, val
 
 
-def build_tokenizer(cfg: Config):
-    """The char vocabulary (the transformer configs'); phone and BPE
-    vocabularies are not ported yet (ROADMAP.md)."""
-    from metaasr_tpu_torch.data.tokenizer import CharTokenizer
+def _corpus_texts(data_dir: str, field: str) -> list[str]:
+    from metaasr_tpu_torch.data.dataset import Manifest, discover_accents
 
-    if cfg.data.vocab != "char":
+    texts = []
+    for accent in discover_accents(data_dir):
+        man = Manifest.load(os.path.join(data_dir, f"{accent}.jsonl"))
+        texts.extend(getattr(u, field) for u in man.utts)
+    return texts
+
+
+def build_tokenizer(cfg: Config):
+    """The vocabulary of ``data.vocab``: the ASCII char set, or the phone set
+    loaded from ``<data_dir>/vocab_phone.json`` when present, else built from
+    the manifests' phone transcripts (ARPAbet when they carry none) and
+    saved there. The BPE vocabulary is not ported yet (ROADMAP.md)."""
+    from metaasr_tpu_torch.data.tokenizer import CharTokenizer, PhoneTokenizer
+
+    kind = cfg.data.vocab
+    if kind == "char":
+        return CharTokenizer.ascii_default()
+    if kind == "phone":
+        vocab_path = os.path.join(cfg.data.data_dir, "vocab_phone.json")
+        if os.path.exists(vocab_path):
+            return PhoneTokenizer.load(vocab_path)
+        tok = PhoneTokenizer.from_corpus(
+            _corpus_texts(cfg.data.data_dir, "phones"))
+        if len(tok.symbols) == 0:   # the manifests carry no phone field
+            tok = PhoneTokenizer.arpabet_default()
+        tok.save(vocab_path)
+        return tok
+    if kind == "bpe":
         raise NotImplementedError(
-            f"vocab {cfg.data.vocab!r} is not ported yet (ROADMAP.md, port "
-            "queue); the port trains with the char vocabulary")
-    return CharTokenizer.ascii_default()
+            "the BPE vocabulary (data.vocab: bpe) is not ported yet "
+            "(ROADMAP.md, port queue)")
+    raise ValueError(f"unknown vocab type {kind}")
 
 
 def make_trainer(cfg: Config, workdir: str, device=None):
-    """(MetaASRTrainer, tokenizer) for a fomaml/reptile config; held-out
-    accents (``data.heldout_accents``) are kept out of the task pool."""
+    """(trainer, tokenizer) for the configured algo: ``MonoASRTrainer``
+    (no), ``MultitaskASRTrainer`` (multi) or ``MetaASRTrainer`` (fomaml,
+    reptile). Held-out accents (``data.heldout_accents``) are kept out of
+    the training pool; the baselines evaluate on a per-accent dev split
+    (``data.dev_fraction``) or, without one, on the first held-out accent."""
     from metaasr_tpu_torch.data.dataset import load_accent_datasets
     from metaasr_tpu_torch.task import ASRTask
     from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
+    from metaasr_tpu_torch.train.mono import (
+        MonoASRTrainer,
+        MultitaskASRTrainer,
+    )
 
     algo = cfg.meta.algo
-    if algo not in ("fomaml", "maml", "reptile"):
-        raise NotImplementedError(
-            f"algo {algo!r} (mono/multitask trainers) is not ported yet "
-            "(ROADMAP.md)")
+    if algo not in ("no", "multi", "fomaml", "maml", "reptile"):
+        raise ValueError(f"unknown algo {algo}")
     tok = build_tokenizer(cfg)
     cfg.model.vocab_size = tok.vocab_size
     spk_path = ""
@@ -76,8 +112,27 @@ def make_trainer(cfg: Config, workdir: str, device=None):
         heldout[name] = (dsets.pop(name) if name in dsets
                          else load((name,))[name])
     task = ASRTask(cfg, tok.sos_eos_id, device=device)
-    return MetaASRTrainer(cfg, task, dsets, heldout, tok, workdir,
-                          device=device), tok
+    if algo in ("fomaml", "maml", "reptile"):
+        return MetaASRTrainer(cfg, task, dsets, heldout, tok, workdir,
+                              device=device), tok
+    dev = next(iter(heldout.values())) if heldout else None
+    if cfg.data.dev_fraction > 0:
+        # per-accent train/dev partition; the first accent's dev set scores
+        devs = {}
+        for name in list(dsets):
+            dsets[name], devs[name] = dsets[name].split(
+                cfg.data.dev_fraction, seed=cfg.data.seed)
+        dev = next(iter(devs.values())) if devs else dev
+    if algo == "no":
+        train_sets = [dsets[a] for a in (cfg.data.accents or sorted(dsets))][:1]
+        trainer = MonoASRTrainer(cfg, task, train_sets, dev, tok, workdir,
+                                 device=device)
+    else:
+        trainer = MultitaskASRTrainer(cfg, task, dsets, dev, tok, workdir,
+                                      device=device)
+    # the baselines are tested on the same held-out accents as the meta runs
+    trainer.heldout_datasets = heldout
+    return trainer, tok
 
 
 def main(argv=None):
@@ -91,7 +146,8 @@ def main(argv=None):
     p.add_argument("-o", "--override", action="append", default=[],
                    help="dotted config override key=value")
     t = p.add_argument_group("train")
-    t.add_argument("--algo", choices=["fomaml", "maml", "reptile"],
+    t.add_argument("--algo",
+                   choices=["no", "multi", "fomaml", "maml", "reptile"],
                    default=None)
     t.add_argument("--workdir", type=str, default="runs/default")
     t.add_argument("--data-dir", type=str, default=None)
@@ -146,7 +202,10 @@ def _train(args, overrides: dict) -> int:
     os.makedirs(args.workdir, exist_ok=True)
     save_config(cfg, os.path.join(args.workdir, "config.yaml"))
     trainer, _ = make_trainer(cfg, args.workdir, device=args.device)
-    state = trainer.meta_train()
+    if cfg.meta.algo in ("no", "multi"):
+        state = trainer.train()
+    else:
+        state = trainer.meta_train()
     print(json.dumps({"workdir": args.workdir, "step": state["step"]}))
     return 0
 

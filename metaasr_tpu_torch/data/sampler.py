@@ -1,6 +1,14 @@
-"""Meta-task sampler and collation (counterpart of the meta-learning part of
-``metaasr_tpu/data/sampler.py``: ``collate``, ``TaskSampler``,
+"""Collation, the length-bucketed batcher and the meta-task sampler
+(counterpart of ``metaasr_tpu/data/sampler.py``: ``collate``,
+``item_samples``, ``BucketBatcher``, ``TaskSampler``,
 ``support_query_split``).
+
+``BucketBatcher`` groups utterances whose (audio bucket, token bucket)
+match, so every batch has one of a small set of shapes; its order is a pure
+function of (seed, epoch, batch index), so a resumed run replays the same
+stream (``iter_from``). The mono and multitask trainers use it; multitask
+pools the accents' utterances, which samples accents in proportion to
+their size.
 
 Each ``TaskSampler.sample(step)`` draws ``tasks_per_batch`` accents and,
 per accent, disjoint support/query utterances, collated to numpy arrays
@@ -19,6 +27,11 @@ import numpy as np
 
 from metaasr_tpu_torch.frontend.fbank import num_frames
 from metaasr_tpu_torch.utils.padding import bucket_length
+
+
+# Waveform-length buckets (samples at 16 kHz): 1, 2, 4, 8, 16 s.
+DEFAULT_SAMPLE_BUCKETS = (16000, 32000, 64000, 128000, 256000)
+DEFAULT_TOKEN_BUCKETS = (16, 32, 64, 128)
 
 
 def collate(items: list[dict], num_samples: int, num_tokens: int) -> dict:
@@ -64,6 +77,98 @@ def collate(items: list[dict], num_samples: int, num_tokens: int) -> dict:
         out["cmvn_mean"] = np.stack([it["cmvn_mean"] for it in items])
         out["cmvn_std"] = np.stack([it["cmvn_std"] for it in items])
     return out
+
+
+def item_samples(item: dict) -> int:
+    """Waveform-sample length of a dataset item, either payload mode: a
+    feature item maps its frames back to the sample count that gives exactly
+    that frame count (the inverse of ``frontend.fbank.num_frames``)."""
+    if "audio" in item:
+        return len(item["audio"])
+    return len(item["feats"]) * 160 + 240
+
+
+class BucketBatcher:
+    """Length-bucketed batch iterator over one or more accent datasets."""
+
+    def __init__(self, datasets, batch_size: int,
+                 sample_buckets=DEFAULT_SAMPLE_BUCKETS,
+                 token_buckets=DEFAULT_TOKEN_BUCKETS,
+                 seed: int = 0, drop_last: bool = True, tokenizer=None):
+        if not isinstance(datasets, (list, tuple)):
+            datasets = [datasets]
+        self.datasets = list(datasets)
+        self.batch_size = batch_size
+        self.sample_buckets = tuple(sample_buckets)
+        self.token_buckets = tuple(token_buckets)
+        self.seed = int(seed)
+        self.drop_last = drop_last
+        # (dataset index, utterance index, bucket key): metadata only
+        self.index = []
+        for di, ds in enumerate(self.datasets):
+            for ui, u in enumerate(ds.manifest.utts):
+                sb = bucket_length(u.num_samples, self.sample_buckets)
+                if tokenizer is not None:
+                    # the exact token count: characters undercount a phone
+                    # vocabulary and collate would cut the labels
+                    tok_len = len(tokenizer.encode(ds.transcript(ui)))
+                else:
+                    tok_len = len(ds.transcript(ui))
+                tb = bucket_length(max(tok_len, 1), self.token_buckets)
+                self.index.append((di, ui, (sb, tb)))
+
+    @property
+    def batches_per_epoch(self) -> int:
+        """The same in every epoch: bucket membership is fixed, only the
+        order inside each bucket is permuted."""
+        counts: dict[tuple, int] = {}
+        for _, _, key in self.index:
+            counts[key] = counts.get(key, 0) + 1
+        full = sum(n // self.batch_size for n in counts.values())
+        if self.drop_last:
+            return full
+        return full + sum(1 for n in counts.values() if n % self.batch_size)
+
+    def _epoch_refs(self, epoch: int):
+        """(key, refs) batch plan of one epoch: a pure function of
+        (seed, epoch)."""
+        order = np.random.default_rng(
+            (self.seed, int(epoch))).permutation(len(self.index))
+        pending: dict[tuple, list] = {}
+        for oi in order:
+            di, ui, key = self.index[oi]
+            pending.setdefault(key, []).append((di, ui))
+            if len(pending[key]) == self.batch_size:
+                yield key, pending.pop(key)
+        if not self.drop_last:
+            for key, items in pending.items():
+                if items:
+                    yield key, items
+
+    def __iter__(self):
+        """One epoch (epoch 0). Training loops use ``iter_from``."""
+        for key, refs in self._epoch_refs(0):
+            yield self._emit(key, refs)
+
+    def iter_from(self, global_step: int):
+        """Endless batch stream starting at batch index ``global_step`` of
+        the (seed, epoch)-indexed schedule. Skipped batches are planned but
+        never loaded."""
+        bpe = self.batches_per_epoch
+        if bpe == 0:
+            raise ValueError("BucketBatcher: dataset yields zero batches "
+                             "(batch_size too large for every bucket?)")
+        epoch, skip = divmod(int(global_step), bpe)
+        while True:
+            for bi, (key, refs) in enumerate(self._epoch_refs(epoch)):
+                if bi < skip:
+                    continue
+                yield self._emit(key, refs)
+            epoch, skip = epoch + 1, 0
+
+    def _emit(self, key, refs):
+        sb, tb = key
+        return collate([self.datasets[di][ui] for di, ui in refs], sb, tb)
 
 
 class TaskSampler:

@@ -13,8 +13,8 @@ verbatim by the ASR task.
   detached copy of ``p_i``, so the adapted parameters depend on the
   originals with identity Jacobian (the first-order approximation) and the
   outer backward never differentiates the inner gradient. K2 is first order
-  only, so full second-order MAML raises (ROADMAP.md, port queue item 2:
-  K2b).
+  only, so full second-order MAML raises (K2b, the next slice of
+  ROADMAP.md's port queue).
 - The task axis is a loop: batches carry a leading task axis [M, k, ...],
   each task runs and back-propagates its query loss / M in turn (one task's
   graph alive at a time), and the outer gradient is the mean over tasks.
@@ -133,8 +133,8 @@ def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
     if not cfg.first_order:
         raise NotImplementedError(
             "second-order MAML differentiates through the inner gradient, "
-            "which needs a twice-differentiable CTC (K2b); it is ROADMAP.md "
-            "port queue item 2. Use algo fomaml or reptile.")
+            "which needs a twice-differentiable CTC (K2b): the next slice "
+            "of ROADMAP.md's port queue. Use algo fomaml or reptile.")
 
     def one_step(params, generator, batch, inner_scale, widen_scale):
         model, lr = split_lr(params)

@@ -13,8 +13,8 @@ gathers the emissions, builds the skip bias and ``end = 2·label_len``, and
 runs the recursion inside a ``torch.autograd.Function`` whose backward is
 ``grad_out[:, None, None] * g`` with the kernel's saved ``g``; the gather's
 own backward scatters that to ``[B, T, V]``. The Function is first order
-only (``once_differentiable``): second-order MAML needs K2b (ROADMAP.md,
-port queue item 2).
+only (``once_differentiable``): second-order MAML needs K2b (the next
+slice of ROADMAP.md's port queue).
 """
 
 from __future__ import annotations
@@ -173,7 +173,7 @@ class CTCAlphaBeta(torch.autograd.Function):
             raise RuntimeError(
                 "the CTC alpha/beta Function is first order only; a "
                 "differentiable backward (create_graph=True) needs K2b, "
-                "ROADMAP.md port queue item 2")
+                "the next slice of ROADMAP.md's port queue")
         return _scale_posterior(ctx, grad_out)
 
 

@@ -76,9 +76,15 @@ def load_bundle_params(path: str) -> dict:
 
 def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
                  buckets: Sequence[tuple[int, int]],
-                 weights_dtype: str = "float32", mode: str = "beam") -> dict:
+                 weights_dtype: str = "float32",
+                 mode: str | None = None) -> dict:
     """Write params.npz, tokenizer.json and meta.json for a Flax-layout
-    params tree (no programs: ``files`` is empty). Returns the manifest."""
+    params tree (no programs: ``files`` is empty). ``mode`` is the decode
+    algorithm, "beam" or "greedy"; None picks beam for the transformer and
+    greedy for the CTC-only VGG-BLSTM. Returns the manifest."""
+    if mode is None:
+        mode = "beam" if cfg.model.arch == "transformer" else "greedy"
+    _check_mode(mode, cfg.model.arch)
     if weights_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"weights_dtype must be float32 or bfloat16, "
                          f"got {weights_dtype!r}")
@@ -116,12 +122,21 @@ def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
     return manifest
 
 
+def _check_mode(mode: str, arch: str) -> None:
+    if mode not in ("beam", "greedy"):
+        raise ValueError(f"decode mode must be beam or greedy, got {mode!r}")
+    if mode == "beam" and arch != "transformer":
+        raise ValueError(f"arch {arch!r} has no attention decoder: its "
+                         "bundles decode greedily (mode='greedy')")
+
+
 class ServingDecoder:
     """Load a bundle and transcribe on one device.
 
     ``transcribe`` pads each request to the smallest bucket that fits,
     runs fbank (K1) -> CMVN -> encoder -> CTC head -> joint beam search
-    (or greedy CTC for a greedy bundle) and detokenizes. ``params`` hot-swaps
+    (or greedy CTC for a greedy bundle; the VGG-BLSTM's recurrences go
+    through K3) and detokenizes. ``params`` hot-swaps
     an adapted Flax-layout tree; the converted model is cached for the last
     tree object passed.
     """
@@ -148,6 +163,7 @@ class ServingDecoder:
         self.weights_dtype = self.meta.get("weights_dtype", "float32")
         self.from_feats = self.meta["from_feats"]
         self.mode = self.meta["mode"]
+        _check_mode(self.mode, cfg.model.arch)
         t = cfg.train
         self.beam_cfg = BeamSearchConfig(
             beam_size=beam["beam_size"], max_len=beam["max_len"],

@@ -3,7 +3,9 @@
 
 Everything trainable routes through ``ASRTask.loss_fn(params, batch,
 generator, train)``: waveform -> fbank (K1) -> CMVN -> SpecAugment -> model
--> joint CTC/attention loss, with the CTC term through K2
+-> joint CTC/attention loss (transformer) or CTC loss (VGG-BLSTM, whose
+recurrences run in K3/K3b, ``ops/lstm_kernel.py``, unless
+``model.lstm_impl`` is ``scan``), with the CTC term through K2
 (``ops/ctc_kernel.py``) or the scan backend (``model.ctc_impl``). ``params``
 is a dict over the model's parameter names; the model runs through
 ``torch.func.functional_call``, so the meta-learning code adapts plain
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from metaasr_tpu_torch.config import Config
+from metaasr_tpu_torch.decode.greedy import ctc_greedy_decode
 from metaasr_tpu_torch.device import resolve_device
 from metaasr_tpu_torch.frontend.fbank import FbankParams, log_mel_fbank
 from metaasr_tpu_torch.frontend.specaug import spec_augment
@@ -31,6 +34,7 @@ from metaasr_tpu_torch.models.losses import (
     prepare_decoder_targets,
 )
 from metaasr_tpu_torch.models.transformer import TransformerASR
+from metaasr_tpu_torch.models.vgg_blstm import VGGBLSTMCTC
 from metaasr_tpu_torch.ops.ctc import ctc_loss
 from metaasr_tpu_torch.ops.ctc_kernel import ctc_loss_kernel
 from metaasr_tpu_torch.utils.padding import make_non_pad_mask
@@ -47,15 +51,23 @@ def select_ctc_loss(impl: str):
     return ctc_loss if impl == "scan" else ctc_loss_kernel
 
 
-def build_model(cfg: Config) -> TransformerASR:
+def build_model(cfg: Config) -> TransformerASR | VGGBLSTMCTC:
     """The port's model for ``cfg.model`` (randomly initialised; load
     weights with ``weights.flax_to_state_dict``)."""
     m = cfg.model
-    if m.arch != "transformer" or m.encoder != "transformer":
+    if m.arch == "vgg_blstm":
+        return VGGBLSTMCTC(vocab_size=m.vocab_size,
+                           blstm_hidden=m.blstm_hidden,
+                           blstm_layers=m.blstm_layers,
+                           vgg_channels=tuple(m.vgg_channels),
+                           feat_dim=cfg.frontend.num_mel_bins,
+                           dtype=_DTYPES[m.dtype], lstm_impl=m.lstm_impl)
+    if m.arch != "transformer":
+        raise ValueError(f"unknown arch {m.arch}")
+    if m.encoder != "transformer":
         raise NotImplementedError(
-            f"arch={m.arch!r} encoder={m.encoder!r} is not ported yet "
-            "(ROADMAP.md, port queue); the port has the transformer "
-            "joint CTC/attention model")
+            f"encoder={m.encoder!r} (the conformer encoder) is not ported "
+            "yet (ROADMAP.md, port queue)")
     return TransformerASR(vocab_size=m.vocab_size, d_model=m.d_model,
                           num_heads=m.num_heads, d_ff=m.d_ff,
                           num_encoder_layers=m.num_encoder_layers,
@@ -71,6 +83,7 @@ class ASRTask:
                  device: str | torch.device | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.arch = cfg.model.arch
         self._ctc_loss = select_ctc_loss(cfg.model.ctc_impl)
         self._module = None
         self.sos_eos_id = (sos_eos_id if sos_eos_id is not None
@@ -89,11 +102,19 @@ class ASRTask:
             self._global_cmvn = (torch.from_numpy(mean).to(self.device),
                                  torch.from_numpy(std).to(self.device))
 
-    def build_model(self) -> TransformerASR:
+    def build_model(self):
         return build_model(self.cfg).to(self.device).eval()
 
+    def require_full_autodiff(self) -> None:
+        """Make every op of the loss twice differentiable (second-order
+        MAML differentiates through the loss gradient): K3b's Function is
+        first order only, so the BLSTM switches to the autograd loop."""
+        if self.arch == "vgg_blstm" and self.cfg.model.lstm_impl != "scan":
+            self.cfg.model.lstm_impl = "scan"
+            self._module = None
+
     @property
-    def model(self) -> TransformerASR:
+    def model(self):
         """The module ``loss_fn`` calls functionally (its own parameters are
         never read: ``params`` replace them)."""
         if self._module is None:
@@ -183,6 +204,12 @@ class ASRTask:
                 batch["audio"], batch["audio_lens"], batch.get("cmvn_mean"),
                 batch.get("cmvn_std"), generator=generator, train=train)
         tokens, token_lens = batch["tokens"], batch["token_lens"]
+        if self.arch == "vgg_blstm":
+            logits, out_lens = torch.func.functional_call(
+                self.model, params, (feats, feat_lens), {"train": train})
+            lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            loss = self._ctc_loss(lp, out_lens, tokens, token_lens).mean()
+            return loss, {"loss": loss, "ctc_loss": loss}
         tokens_in, _, _ = prepare_decoder_targets(
             tokens.to(torch.int64), token_lens, self.sos_eos_id)
         outputs = torch.func.functional_call(
@@ -194,9 +221,46 @@ class ASRTask:
             ctc_weight=m.ctc_weight, label_smoothing=m.label_smoothing,
             ctc_loss_fn=self._ctc_loss)
 
-    @staticmethod
-    def _greedy_from_feats(model: TransformerASR, feats, feat_lens):
-        from metaasr_tpu_torch.decode.greedy import ctc_greedy_decode
+    # ---------- greedy CTC decode (beam search lives in decode/) ----------
 
+    @staticmethod
+    def _greedy_from_feats(model, feats, feat_lens):
         logits, out_lens = model.ctc_logits_only(feats, feat_lens)
         return ctc_greedy_decode(logits, out_lens)
+
+    def _ctc_logits(self, params: dict, feats, feat_lens):
+        """CTC logits and lengths with ``params`` in place of the module's
+        own (the encoder and head alone for the transformer)."""
+        call = torch.func.functional_call
+        if self.arch == "vgg_blstm":
+            return call(self.model, params, (feats, feat_lens))
+
+        def sub(prefix: str) -> dict:
+            return {k[len(prefix):]: v for k, v in params.items()
+                    if k.startswith(prefix)}
+
+        enc, enc_lens = call(self.model.encoder, sub("encoder."),
+                             (feats, feat_lens))
+        return call(self.model.ctc_head, sub("ctc_head."), (enc,)), enc_lens
+
+    def greedy_ctc_feats(self, params: dict, feats, feat_lens):
+        """Greedy CTC on features -> (packed ids [B, T'], lens [B])."""
+        with torch.no_grad():
+            logits, out_lens = self._ctc_logits(params, feats, feat_lens)
+            return ctc_greedy_decode(logits, out_lens)
+
+    def greedy_ctc(self, params: dict, audio, audio_lens, cmvn_mean=None,
+                   cmvn_std=None):
+        """Greedy CTC on raw audio (features through K1, no augmentation)."""
+        with torch.no_grad():
+            feats, feat_lens = self.features(audio, audio_lens, cmvn_mean,
+                                             cmvn_std)
+        return self.greedy_ctc_feats(params, feats, feat_lens)
+
+    def greedy_batch(self, params: dict, batch: dict):
+        """Greedy CTC on a collated device batch, either payload mode."""
+        if "feats" in batch:
+            return self.greedy_ctc_feats(params, batch["feats"],
+                                         batch["feat_lens"])
+        return self.greedy_ctc(params, batch["audio"], batch["audio_lens"],
+                               batch.get("cmvn_mean"), batch.get("cmvn_std"))

@@ -3,7 +3,9 @@
 
 The same policy: the whole train state (parameters, optimizer state, step,
 seed, best metric) is saved per step as ``step_<N>.pt``, the newest ``keep``
-are kept, and ``best/state.pt`` holds the best-by-metric state. Writes go to
+are kept, and ``best/state.pt`` holds the best-by-metric state; evaluation
+metrics given to ``save`` go beside it as ``step_<N>.metrics.json``
+(``best/metrics.json``). Writes go to
 a temporary file first and are renamed into place, so a reader never sees
 half a file. ``save_params_npz``/``load_params_npz`` exchange parameters in
 the reference's flat Flax layout (``weights.params_to_flax``), the format
@@ -12,6 +14,7 @@ the reference's flat Flax layout (``weights.params_to_flax``), the format
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Any
@@ -27,6 +30,13 @@ _STEP = re.compile(r"step_(\d+)\.pt$")
 def _atomic_save(obj, path: str) -> None:
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _atomic_json(obj: dict, path: str) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump({k: float(v) for k, v in obj.items()}, f)
     os.replace(tmp, path)
 
 
@@ -48,13 +58,24 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.ckpt_dir, f"step_{step}.pt")
 
-    def save(self, step: int, state: Any, is_best: bool = False) -> None:
+    def _metrics_path(self, step: int) -> str:
+        return os.path.join(self.ckpt_dir, f"step_{step}.metrics.json")
+
+    def save(self, step: int, state: Any, metrics: dict | None = None,
+             is_best: bool = False) -> None:
         _atomic_save(state, self._path(step))
+        if metrics is not None:
+            _atomic_json(metrics, self._metrics_path(step))
         if is_best:
             os.makedirs(os.path.dirname(self._best), exist_ok=True)
             _atomic_save(state, self._best)
+            if metrics is not None:
+                _atomic_json(metrics, os.path.join(
+                    os.path.dirname(self._best), "metrics.json"))
         for old in self.all_steps()[:-self.keep] if self.keep > 0 else []:
             os.remove(self._path(old))
+            if os.path.exists(self._metrics_path(old)):
+                os.remove(self._metrics_path(old))
 
     def restore(self, state_template: Any = None, step: int | None = None,
                 map_location=None) -> tuple[Any, int]:

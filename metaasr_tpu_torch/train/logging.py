@@ -1,5 +1,6 @@
-"""Scalar logging (counterpart of ``metaasr_tpu/train/logging.py``): one
-JSON record per call in ``<log_dir>/scalars.jsonl``, optionally echoed."""
+"""Scalar and text logging (counterpart of ``metaasr_tpu/train/logging.py``):
+one JSON record per call in ``<log_dir>/scalars.jsonl``, scalars optionally
+echoed."""
 
 from __future__ import annotations
 
@@ -22,6 +23,10 @@ class MetricLogger:
         if self.print_every and step % self.print_every == 0:
             msg = " ".join(f"{k}={float(v):.4g}" for k, v in scalars.items())
             print(f"[step {step}] {msg}", flush=True)
+
+    def log_text(self, step: int, tag: str, text: str) -> None:
+        self._f.write(json.dumps({"step": int(step), "tag": tag,
+                                  "text": text}) + "\n")
 
     def close(self) -> None:
         self._f.close()

@@ -13,9 +13,11 @@
 The train state is a dict {params, opt_state, step, seed, best_metric,
 stale_evals}; batches are drawn by a producer thread and moved to the
 device on the main thread. Not in this slice (ROADMAP.md): the
-device-resident corpus (``data.resident``) and the mesh paths, held-out
-evaluation (``train.eval_every`` is not acted on; checkpoints follow
-``train.ckpt_every``), ``decode`` and ``average_checkpoints``.
+device-resident corpus (``data.resident``) and the mesh paths, the meta
+trainer's held-out evaluation (``decode``, ``eval_heldout``;
+``train.eval_every`` is not acted on here, checkpoints follow
+``train.ckpt_every``) and ``average_checkpoints``. The baseline trainers
+with their dev evaluation are in ``train/mono.py``.
 """
 
 from __future__ import annotations

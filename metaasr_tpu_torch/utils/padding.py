@@ -28,3 +28,13 @@ def bucket_length(n: int, buckets: tuple[int, ...]) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+def vgg_subsampled_lengths(lengths: torch.Tensor,
+                           num_blocks: int = 2) -> torch.Tensor:
+    """Lengths through the VGG extractor: each block ends in a VALID 2x2
+    max-pool of stride 2 (L -> floor(L / 2)), floored at 1."""
+    out = lengths.to(torch.int64)
+    for _ in range(num_blocks):
+        out = torch.div(out, 2, rounding_mode="floor")
+    return torch.clamp(out, min=1)

@@ -15,6 +15,8 @@ qkv ``kernel [D, 3, H, Dh]``  ``weight [3D, D]``           flatten (3, H, Dh)
 q/k/v ``kernel [D, H, Dh]``   ``weight [D, D]``            flatten (H, Dh)
 attn out ``kernel [H, Dh, D]`` ``weight [D, D]``           flatten (H, Dh)
 Conv ``kernel`` HWIO          ``weight`` OIHW              permute
+``VGGExtractor_0``, ``BLSTM_0``  ``vgg``, ``blstm``
+LSTM ``recurrent [H, 4H]``    ``recurrent [H, 4H]``        as it is
 any ``bias``                  ``bias``                     flatten
 LayerNorm ``scale``           ``weight``
 Embed ``embedding``           ``weight``
@@ -32,7 +34,9 @@ import re
 import numpy as np
 import torch
 
-_RENAME = {"Dense_0": "fc1", "Dense_1": "fc2"}
+_RENAME = {"Dense_0": "fc1", "Dense_1": "fc2",
+           "VGGExtractor_0": "vgg", "BLSTM_0": "blstm"}
+_BARE_LEAVES = ("recurrent",)   # parameters that are not a module's leaf
 _RENAME_BACK = {v: k for k, v in _RENAME.items()}
 
 
@@ -70,12 +74,15 @@ def _port_key(parts: list[str]) -> str:
         m = re.fullmatch(r"layer_(\d+)", p)
         names.append(f"layers.{m.group(1)}" if m else _RENAME.get(p, p))
     leaf = parts[-1]
-    names.append("bias" if leaf == "bias" else "weight")
+    if leaf in _BARE_LEAVES:
+        names.append(leaf)
+    else:
+        names.append("bias" if leaf == "bias" else "weight")
     return ".".join(names)
 
 
 def _to_torch_layout(module: str, leaf: str, a: np.ndarray) -> np.ndarray:
-    if leaf in ("scale", "embedding"):
+    if leaf in ("scale", "embedding") + _BARE_LEAVES:
         return a
     if leaf == "bias":
         return a.reshape(-1)
@@ -115,6 +122,8 @@ def _flax_parts(key: str) -> list[str]:
 def _flax_leaf(key: str) -> str:
     names = key.split(".")
     module, leaf = names[-2], names[-1]
+    if leaf in _BARE_LEAVES:
+        return leaf
     if module.startswith("norm") or module == "final_norm":
         return "scale" if leaf == "weight" else "bias"
     if module == "embed":
@@ -157,6 +166,9 @@ def state_dict_to_flax(sd: dict[str, torch.Tensor], num_heads: int) -> dict:
         names = key.split(".")
         module, leaf = names[-2], names[-1]
         parts = _flax_parts(key)
+        if leaf in _BARE_LEAVES:
+            flat["/".join(parts + [leaf])] = a
+            continue
         if module.startswith("conv"):
             if leaf == "bias":
                 flat["/".join(parts + ["bias"])] = a
@@ -193,7 +205,8 @@ def state_dict_to_flax(sd: dict[str, torch.Tensor], num_heads: int) -> dict:
 def random_state_dict(model: torch.nn.Module, seed: int) -> dict[str, torch.Tensor]:
     """Seeded random weights for ``model`` (numpy RNG, so the values do not
     depend on the torch build): matrices ~ N(0, 1/fan_in), biases ~
-    N(0, 0.02^2), LayerNorm scales 1, embeddings ~ N(0, 1)."""
+    N(0, 0.02^2), LayerNorm scales 1, embeddings ~ N(0, 1), an LSTM's
+    ``recurrent [H, 4H]`` with orthonormal rows (QR of a normal draw)."""
     rng = np.random.default_rng(seed)
     sd = {}
     for key, t in model.state_dict().items():
@@ -203,10 +216,13 @@ def random_state_dict(model: torch.nn.Module, seed: int) -> dict[str, torch.Tens
             a = np.ones(shape) if names[-1] == "weight" else np.zeros(shape)
         elif names[-2] == "embed":
             a = rng.standard_normal(shape)
+        elif names[-1] == "recurrent":
+            q, _ = np.linalg.qr(rng.standard_normal(shape[::-1]))
+            a = q.T
         elif names[-1] == "bias":
             a = 0.02 * rng.standard_normal(shape)
         else:
             fan_in = int(np.prod(shape[1:]))
             a = rng.standard_normal(shape) / np.sqrt(fan_in)
-        sd[key] = torch.from_numpy(a.astype(np.float32))
+        sd[key] = torch.from_numpy(np.ascontiguousarray(a, np.float32))
     return sd
