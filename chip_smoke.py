@@ -68,6 +68,37 @@ Phases, one JSON line each; any failure exits non-zero:
              ``ServingDecoder`` (a full batch of 16 and one utterance);
              exact launch counts (serving: 8 K3 per request, 0 K3b).
 
+11. ctc_hvp_kernel — K2b (the CTC Hessian-vector product) against its plain
+             PyTorch version at K2's four shapes, a seeded direction v: hv
+             l2rel <= 1e-3 and max |diff| <= 1e-5 (1 + max |hv|); against
+             the plain versions run in float64, hv l2rel <= 1e-3 and nll_dot
+             within 1e-4 (1 + |<grad, v>|), both bars times T / 100 at
+             T = 1000 (fp32 rounding); at T <= 100 nll_dot also within
+             2e-4 (1 + |<g, v>|) of K2's own fp32 gradient dotted with v;
+             the infeasible row exactly 0,
+             no NaN; through the autograd Functions, grad(<grad(loss), v>)
+             on cuda against the cpu with exactly one K2 and one K2b launch.
+             CUDA-event medians of K2b, its plain version and, as the only
+             yardstick there is (``F.ctc_loss`` is not twice
+             differentiable), autograd-of-autograd through the port's scan
+             recursion on the card.
+12. maml_step — the config4-width second-order MAML meta-step (maml_grads
+             with first_order false + Adam/Noam, clip 5) on bench.py's
+             workload at config4's own shape, 4 x (16 + 16) utterances of
+             64,000 samples, 32 tokens, 2 inner steps, bf16 grad_dtype,
+             SpecAugment on: 1 warm-up, 3 timed, 1 profiled step; every loss
+             finite, exactly 2*M K1, M*(inner_steps+1) K2 and M*inner_steps
+             K2b launches per step. Before it, a small fp32 model's
+             second-order gradients on cuda against the cpu (worst leaf
+             l2rel <= 1e-3).
+13. maml_entry — ``configs/config4_maml.yaml`` through the CLI's
+             ``make_trainer`` on an 8-accent synthetic corpus: 2 meta-steps
+             at full width, the checkpoint restored exactly, meta_adapt on
+             the held-out accent; then one MAML step of a small VGG-BLSTM
+             (hidden 64, 2 layers) through the same trainer, whose
+             recurrence runs in the autograd loop (0 K3/K3b launches);
+             exact launch counts.
+
 Then a ``{"kernels": [...]}`` line (time, bound, launches on the main
 paths per kernel) and the last line ``{"ok": true, "device": {...}}``.
 TF32 is off throughout (the reference pins fp32 HIGHEST in the front-end).
@@ -278,22 +309,31 @@ def check_results(results, n, tok):
 def device_busy(torch, fn):
     """Run ``fn`` under torch.profiler; -> (host wall ms, device busy ms as
     the union of CUDA kernel spans, kernel count, top kernels by time).
-    Device numbers are None when the profiler records no CUDA events."""
+    Device numbers are None when the profiler records no CUDA events.
+
+    Only device activity is traced, and the spans are read from the
+    profiler's raw Kineto records: building ``prof.events()`` in Python
+    takes tens of seconds for the ~100,000 kernels of one meta-step and
+    yields the same spans."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            s, t = e.time_range.start, e.time_range.end
+    # kineto_results is not a public attribute: checked on PyTorch
+    # 2.11.0+cu128; a version without it fails here with an AttributeError,
+    # not silently. Busy shares are comparable only through this one reader.
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            s = e.start_ns()
+            t = s + e.duration_ns()
             spans.append((s, t))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (t - s) / 1e3
+            name = e.name()
+            by_name[name] = by_name.get(name, 0.0) + (t - s) / 1e6
     if not spans:
         return wall, None, 0, []
     busy, cur_s, cur_e = 0.0, None, None
@@ -305,7 +345,7 @@ def device_busy(torch, fn):
             cur_e = max(cur_e, t)
     busy += cur_e - cur_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return wall, busy / 1e3, len(spans), [[n[:60], ms] for n, ms in top]
+    return wall, busy / 1e6, len(spans), [[n[:60], ms] for n, ms in top]
 
 
 def phase_serving(torch):
@@ -866,12 +906,18 @@ def lstm_counts():
             "k3b": lstm_recurrence.bwd_launches}
 
 
+def all_counts():
+    from metaasr_tpu_torch.ops.ctc_kernel import ctc_hvp
+
+    return {**lstm_counts(), "k2b": ctc_hvp.launches}
+
+
 def zero_counts():
     from metaasr_tpu_torch.frontend.fbank_kernel import fused_log_mel
-    from metaasr_tpu_torch.ops.ctc_kernel import ctc_alpha_beta
+    from metaasr_tpu_torch.ops.ctc_kernel import ctc_alpha_beta, ctc_hvp
     from metaasr_tpu_torch.ops.lstm_kernel import lstm_recurrence
 
-    fused_log_mel.launches = ctc_alpha_beta.launches = 0
+    fused_log_mel.launches = ctc_alpha_beta.launches = ctc_hvp.launches = 0
     lstm_recurrence.launches = lstm_recurrence.bwd_launches = 0
 
 
@@ -1089,6 +1135,385 @@ def phase_mono_entry(torch):
     return out
 
 
+# ------------------------------------------------------------------ K2b ----
+
+HVP_L2REL = 1e-3   # tests/test_m3_pallas.py:96-102: rtol 1e-3 ...
+HVP_ATOL = 1e-5    # ... atol 1e-5, here times (1 + max |hv|)
+# operations per element of [B, T, S]: K2's 16 for the primal recursion, 7
+# per pass for the tangent (3 products, 3 sums, 1 division) and 3 for hv
+HVP_OPS_PER_ELEMENT = 16 + 2 * 7 + 3
+# K2b's <g, v> against K2's own fp32 gradient dotted with v, at T <= 100
+# (the main path's shapes): both round over T steps, each to ~1e-4, so the
+# bar is 1e-4 for each; a K2 / K2b inconsistency is orders above it
+K2_K2B_DOT_TOL = 2e-4
+
+
+def phase_ctc_hvp_kernel(torch, peaks):
+    from metaasr_tpu_torch.ops import ctc as ctc_ops
+    from metaasr_tpu_torch.ops import ctc_kernel
+
+    peak_flops, peak_bw = peaks
+    res = {"phase": "ctc_hvp_kernel", "hv_l2rel_tol": HVP_L2REL,
+           "hv_abs_tol": "1e-5 * (1 + max|hv|)",
+           "nll_dot_tol": "1e-4 * (1 + |<grad64, v>|) * max(1, T / 100)",
+           "nll_dot_vs_k2_tol": f"{K2_K2B_DOT_TOL} * (1 + |<g_k2, v>|), "
+                                "T <= 100",
+           "hv_l2rel_to_float64_tol": "1e-3 * max(1, T / 100)",
+           "shapes": {}}
+    ok = True
+    for i, (name, shape) in enumerate(CTC_SHAPES.items()):
+        lp, t_lens, labels, u_lens = ctc_inputs(torch, shape, seed=10 + i)
+        z = ctc_ops.extend_labels(labels)
+        logp_z = ctc_ops.gather_emissions(lp, z).contiguous()
+        skip = ctc_ops.skip_bias(z).contiguous()
+        end = (2 * u_lens).contiguous()
+        rng = np.random.default_rng(50 + i)
+        v_full = torch.from_numpy(rng.standard_normal(
+            tuple(lp.shape)).astype(np.float32)).to(DEVICE)
+        v = ctc_ops.gather_emissions(v_full, z).contiguous()
+        hv, nll_dot = ctc_kernel.ctc_hvp(logp_z, skip, t_lens, end, v)
+        p_hv, p_dot = ctc_kernel.plain_ctc_hvp(logp_z, skip, t_lens, end, v)
+        _, g = ctc_kernel.ctc_alpha_beta(logp_z, skip, t_lens, end)
+        torch.cuda.synchronize()
+        hv_l2rel = l2rel(torch, hv, p_hv)
+        # the same recursion in float64: what fp32 costs, kernel and plain
+        hv64 = ctc_kernel.plain_ctc_hvp(logp_z.double(), skip.double(),
+                                        t_lens, end, v.double())[0]
+        hv64_l2rel = l2rel(torch, hv.double(), hv64)
+        hv_abs = float((hv - p_hv).abs().max())
+        hv_max = float(p_hv.abs().max())
+        # <grad, v> on the feasible rows: with the plain alpha/beta
+        # gradient in float64 (the bar), and with K2's own fp32 gradient,
+        # whose rounding over T steps the product inherits
+        g64 = ctc_kernel.plain_ctc_alpha_beta(
+            logp_z.double(), skip.double(), t_lens, end)[1]
+        gv64 = (g64 * v.double()).sum((1, 2))[:-1]
+        dot_err = float(((nll_dot[:-1].double() - gv64).abs()
+                         / (1 + gv64.abs())).max())
+        gv = (g * v).sum((1, 2))[:-1]
+        dot_err_fp32 = float(((nll_dot[:-1] - gv).abs()
+                              / (1 + gv.abs())).max())
+        plain_dot_err = float((nll_dot - p_dot).abs().max())
+        infeasible_zero = (float(hv[-1].abs().max()) == 0.0
+                           and float(nll_dot[-1]) == 0.0)
+        finite = bool(torch.isfinite(hv).all() and torch.isfinite(nll_dot).all())
+
+        # through the Functions: grad(<grad(loss), v>) w.r.t. the log-probs,
+        # the kernels on the card against the plain versions on the cpu
+        def double_backward(dev, loss_fn=ctc_kernel.ctc_loss_kernel):
+            x = lp.detach().to(dev).requires_grad_(True)
+            loss = loss_fn(x, t_lens.to(dev), labels.to(dev), u_lens.to(dev))
+            (g1,) = torch.autograd.grad(loss.sum(), x, create_graph=True)
+            (h,) = torch.autograd.grad((g1 * v_full.to(dev)).sum(), x)
+            return h
+
+        before = (ctc_kernel.ctc_alpha_beta.launches,
+                  ctc_kernel.ctc_hvp.launches)
+        h_cuda = double_backward(DEVICE)
+        torch.cuda.synchronize()
+        counted = (ctc_kernel.ctc_alpha_beta.launches - before[0],
+                   ctc_kernel.ctc_hvp.launches - before[1])
+        h_cpu = double_backward("cpu")
+        fn_l2rel = l2rel(torch, h_cuda.cpu(), h_cpu)
+        fn_ok = (fn_l2rel <= HVP_L2REL and counted == (1, 1)
+                 and float(h_cuda[-1].abs().max()) == 0.0
+                 and bool(torch.isfinite(h_cuda).all()))
+        entry = {"shape_btuv": list(shape), "hv_l2rel": hv_l2rel,
+                 "hv_l2rel_to_float64": hv64_l2rel,
+                 "hv_max_abs_diff": hv_abs, "hv_max_abs": hv_max,
+                 "nll_dot_vs_grad64_dot_v": dot_err,
+                 "nll_dot_vs_k2_grad_dot_v": dot_err_fp32,
+                 "nll_dot_max_abs_diff_to_plain": plain_dot_err,
+                 "infeasible_row_zero": infeasible_zero, "finite": finite,
+                 "functions_cuda_vs_cpu_l2rel": fn_l2rel,
+                 "functions_launches_k2_k2b": list(counted)}
+        # against float64 the bars widen with T: fp32 rounds alpha and
+        # beta, sums of T log-probs, to ~2^-24 of their size, and exp()
+        # turns that absolute error into a relative one (K2's gradient has
+        # the same loss, CTC_GRAD_L2REL at T = 1000)
+        f64_scale = max(1.0, shape[1] / 100)
+        ok = (ok and hv_l2rel <= HVP_L2REL
+              and hv64_l2rel <= HVP_L2REL * f64_scale
+              and hv_abs <= HVP_ATOL * (1 + hv_max)
+              and dot_err <= 1e-4 * f64_scale
+              and (shape[1] > 100 or dot_err_fp32 <= K2_K2B_DOT_TOL)
+              and infeasible_zero and finite and fn_ok)
+        if name in ("per_task", "fused"):
+            bsz, t_len, _, _ = shape
+            s_len = z.shape[1]
+            entry["ms"] = cuda_median_ms(torch, lambda: ctc_kernel.ctc_hvp(
+                logp_z, skip, t_lens, end, v))
+            entry["plain_ms"] = cuda_median_ms(
+                torch, lambda: ctc_kernel.plain_ctc_hvp(
+                    logp_z, skip, t_lens, end, v), runs=6, warmup=1)
+            entry["k2_ms"] = cuda_median_ms(
+                torch, lambda: ctc_kernel.ctc_alpha_beta(
+                    logp_z, skip, t_lens, end))
+            # loss, gradient and its product by autograd through the scan:
+            # what K2 + K2b (two launches) replace
+            entry["scan_double_backward_ms"] = cuda_median_ms(
+                torch, lambda: double_backward(DEVICE, ctc_ops.ctc_loss),
+                runs=4, warmup=1)
+            elems = bsz * t_len * s_len
+            ops = HVP_OPS_PER_ELEMENT * elems
+            # what the function must move: logp_z and v read, hv written
+            # (and skip, lens, end, nll_dot). The alpha-dot history that
+            # this design also writes and reads is its own traffic, not the
+            # function's: it is reported beside the bound, not in it.
+            nbytes = 4 * (3 * elems + bsz * s_len + 3 * bsz)
+            t_ops, t_bytes = ops / peak_flops, nbytes / peak_bw
+            entry.update(
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                design_traffic_ms=1e3 * (nbytes + 8 * elems) / peak_bw,
+                dependent_steps=2 * t_len,
+                us_per_dependent_step=1e3 * entry["ms"] / (2 * t_len))
+        res["shapes"][name] = entry
+    log(res)
+    if not ok:
+        raise SystemExit("K2b disagrees with its plain version")
+    return res
+
+
+# ------------------------------------------------- second-order MAML ----
+
+MAML_SHAPE = (4, 16)    # configs/config4_maml.yaml: 4 tasks x (16 + 16)
+
+
+def config4():
+    """configs/config4_maml.yaml at full width (config3's model; algo maml,
+    2 inner steps at lr 0.01, 4 tasks x (16 + 16), bf16 meta-step)."""
+    cfg, tok = config3_train()
+    m = cfg.meta
+    m.algo, m.inner_steps = "maml", 2
+    m.tasks_per_batch, m.k_support, m.k_query = MAML_SHAPE[0], 16, 16
+    return cfg, tok
+
+
+def small_maml_parity(torch):
+    """A small fp32 transformer's second-order MAML gradients on cuda (K1,
+    K2, K2b) against the cpu (their plain versions), dropout 0 and
+    SpecAugment off so that both draw nothing."""
+    from metaasr_tpu_torch.meta.maml import MetaAlgoConfig, maml_grads
+    from metaasr_tpu_torch.task import ASRTask
+
+    cfg, tok = config3()
+    m = cfg.model
+    m.d_model, m.num_heads, m.d_ff, m.dtype = 32, 2, 64, "float32"
+    m.num_encoder_layers = m.num_decoder_layers = 2
+    m.dropout = 0.0
+    cfg.specaug.enabled = False
+    rng = np.random.default_rng(60)
+    m_tasks, k_shot, width, n_tok = 2, 3, 16000, 6
+
+    def part():
+        lens = rng.integers(9000, width + 1, (m_tasks, k_shot)).astype(np.int32)
+        audio = np.stack([make_waves(rng, row, width) for row in lens])
+        tok_lens = rng.integers(2, n_tok + 1, (m_tasks, k_shot)).astype(np.int32)
+        tokens = rng.integers(1, tok.vocab_size - 1,
+                              (m_tasks, k_shot, n_tok)).astype(np.int32)
+        tokens *= np.arange(n_tok)[None, None, :] < tok_lens[..., None]
+        return {"audio": audio, "audio_lens": lens, "tokens": tokens,
+                "token_lens": tok_lens}
+
+    mb = {"support": part(), "query": part()}
+    algo = MetaAlgoConfig(inner_lr=0.05, inner_steps=2, first_order=False)
+    out = {}
+    for dev in ("cpu", DEVICE):
+        task = ASRTask(cfg, tok.sos_eos_id, device=dev)
+        batch = {s: {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
+                 for s, p in mb.items()}
+        grads, metrics = maml_grads(task.loss_fn, algo, task.preprocess)(
+            task.init_params(4), batch, 0)
+        out[dev] = (float(metrics["meta_loss"]),
+                    {k: g.cpu() for k, g in grads.items()})
+    (want, want_g), (got, got_g) = out["cpu"], out[DEVICE]
+    # leaves whose exact gradient is 0 (cross-attention key biases) hold
+    # rounding noise on both sides: floor the norm as the CPU tests do
+    worst = max(float(torch.linalg.norm(got_g[k] - want_g[k])
+                      / torch.linalg.norm(want_g[k]).clamp_min(1e-4))
+                for k in want_g)
+    res = {"meta_loss_cpu": want, "meta_loss_cuda": got,
+           "worst_grad_leaf_l2rel": worst}
+    if not (abs(got - want) <= 1e-4 * abs(want) and worst <= 1e-3):
+        log({"phase": "maml_step", "parity_small": res})
+        raise SystemExit("cuda and cpu disagree on the second-order "
+                         "MAML gradients")
+    return res
+
+
+def phase_maml_step(torch):
+    from metaasr_tpu_torch.meta.maml import fold_in, maml_grads
+    from metaasr_tpu_torch.task import ASRTask
+    from metaasr_tpu_torch.train.meta_train import algo_config
+    from metaasr_tpu_torch.train.optimizer import apply_updates, make_optimizer
+
+    parity = small_maml_parity(torch)
+    cfg, tok = config4()
+    task = ASRTask(cfg, tok.sos_eos_id, device=DEVICE)
+    algo = algo_config(cfg)
+    grad_fn = maml_grads(task.loss_fn, algo, task.preprocess)
+    opt = make_optimizer(cfg.optimizer, cfg.model.d_model)
+    inner = cfg.meta.inner_steps
+    m_tasks, k_shot = MAML_SHAPE
+    st = {"params": task.init_params(0)}
+    st["opt"] = opt.init(st["params"])
+    mb = bench_meta_batch(torch, m_tasks, k_shot, tok.vocab_size)
+    losses = []
+
+    def one_step(i):
+        grads, metrics = grad_fn(st["params"], mb, fold_in(0, i))
+        updates, st["opt"] = opt.update(grads, st["opt"], st["params"])
+        st["params"] = apply_updates(st["params"], updates)
+        losses.append(metrics["meta_loss"])
+
+    warmup, timed = 1, 3
+    zero_counts()
+    for i in range(warmup):
+        one_step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(warmup, warmup + timed):
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_busy(torch, lambda: one_step(warmup + timed))
+    counts = all_counts()
+    steps = warmup + timed + 1
+    want = {"k1": steps * 2 * m_tasks, "k2": steps * m_tasks * (inner + 1),
+            "k2b": steps * m_tasks * inner, "k3": 0, "k3b": 0}
+    ms = statistics.median(times)
+    loss_vals = [float(x) for x in losses]
+    out = {"phase": "maml_step", "parity_small": parity,
+           "algo": "maml (first_order false)", "inner_steps": inner,
+           "grad_dtype": cfg.meta.grad_dtype, "specaug": True,
+           "remat_inner": f"{cfg.meta.remat_inner} (accepted, not acted on)",
+           "optimizer": "adam, noam lr 0.5 warmup 2000, clip 5.0",
+           "tasks": m_tasks, "shots": k_shot, "steps": steps,
+           "ms_per_step": ms, "ms_per_step_all": times,
+           "unique_utts_per_s": m_tasks * 2 * k_shot / (ms / 1e3),
+           "presentations_per_s":
+               m_tasks * (k_shot * inner + k_shot) / (ms / 1e3),
+           "peak_mem_gb": peak / 1e9,
+           "profiled_step": {"wall_ms": prof[0], "device_busy_ms": prof[1],
+                             "cuda_kernels": prof[2],
+                             "top_kernels_ms": prof[3]},
+           "device_busy_share": None if prof[1] is None else prof[1] / ms,
+           "launches": counts, "launches_expected": want,
+           "meta_loss": loss_vals}
+    log(out)
+    if not all(math.isfinite(v) for v in loss_vals):
+        raise SystemExit("non-finite meta loss in the MAML step")
+    if counts != want:
+        raise SystemExit(f"MAML step launch counts {counts}, want {want}")
+    del st, mb
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_maml_entry(torch):
+    """configs/config4_maml.yaml through the entry points a user calls:
+    meta-train -> checkpoint -> adapt at full width, then one MAML step of a
+    small VGG-BLSTM through the same trainer."""
+    from metaasr_tpu_torch.cli import make_trainer
+    from metaasr_tpu_torch.config import load_config
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+
+    config_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "config4_maml.yaml")
+    steps = 2
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "data")
+        t0 = time.perf_counter()
+        # 16 + 16 shots per task: 32 utterances per accent
+        generate_dataset(data, utts_per_accent=32, words_per_utt=(2, 4),
+                         seed=0)
+        gen_s = time.perf_counter() - t0
+        cfg = load_config(config_path, {
+            "data.data_dir": data, "train.log_every": 1,
+            "train.ckpt_every": 2, "train.keep_ckpts": 2})
+        cfg.data.heldout_accents = ("tango",)
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer, tok = make_trainer(cfg, os.path.join(d, "wd"), DEVICE)
+        state = trainer.meta_train(max_steps=steps)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        with open(os.path.join(d, "wd", "logs", "scalars.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        ckpts = trainer.ckpt.all_steps()
+        restored, at = trainer.ckpt.restore(map_location=DEVICE)
+        restored_equal = at == steps and all(
+            torch.equal(restored["params"][k], v)
+            for k, v in state["params"].items())
+        adapted, test_idx = trainer.meta_adapt(
+            state["params"], trainer.heldout_datasets["tango"], seed=0)
+        torch.cuda.synchronize()
+        adapted_finite = all(bool(torch.isfinite(v).all())
+                             for v in adapted.values())
+        counts = all_counts()
+
+        # a small VGG-BLSTM under MAML: the recurrence leaves K3/K3b for
+        # the twice-differentiable autograd loop
+        small = load_config(config_path, {
+            "data.data_dir": data, "train.log_every": 1,
+            "meta.tasks_per_batch": 2, "meta.k_support": 2,
+            "meta.k_query": 2, "meta.grad_dtype": "float32"})
+        small.data.heldout_accents = ("tango",)
+        sm = small.model
+        sm.arch, sm.blstm_hidden, sm.blstm_layers = "vgg_blstm", 64, 2
+        sm.vgg_channels, sm.dtype = (16, 32), "float32"
+        zero_counts()
+        vgg_trainer, _ = make_trainer(small, os.path.join(d, "wd_vgg"),
+                                      DEVICE)
+        vgg_state = vgg_trainer.meta_train(max_steps=1)
+        torch.cuda.synchronize()
+        with open(os.path.join(d, "wd_vgg", "logs", "scalars.jsonl")) as f:
+            vgg_recs = [json.loads(line) for line in f]
+        vgg_counts = all_counts()
+    m = cfg.meta
+    want = {"k1": steps * 2 * m.tasks_per_batch + 1,          # + adapt
+            "k2": steps * m.tasks_per_batch * (m.inner_steps + 1)
+            + m.adapt_steps,
+            "k2b": steps * m.tasks_per_batch * m.inner_steps,
+            "k3": 0, "k3b": 0}
+    vm = small.meta
+    vgg_want = {"k1": 2 * vm.tasks_per_batch,
+                "k2": vm.tasks_per_batch * (vm.inner_steps + 1),
+                "k2b": vm.tasks_per_batch * vm.inner_steps, "k3": 0, "k3b": 0}
+    out = {"phase": "maml_entry", "config": "configs/config4_maml.yaml",
+           "algo": m.algo, "inner_steps": m.inner_steps,
+           "tasks_x_shots": [m.tasks_per_batch, m.k_support, m.k_query],
+           "accents": 8, "heldout": "tango", "corpus_s": gen_s,
+           "meta_train_s": train_s, "steps": state["step"],
+           "meta_loss": [r["meta_loss"] for r in recs],
+           "utts_per_sec_logged": [r["utts_per_sec"] for r in recs],
+           "ckpt_steps": ckpts, "restored_equal": restored_equal,
+           "adapted_leaves": len(adapted), "adapt_test_utts": len(test_idx),
+           "launches": counts, "launches_expected": want,
+           "vgg_blstm_maml": {
+               "model": {"blstm_hidden": 64, "blstm_layers": 2,
+                         "vgg_channels": [16, 32], "dtype": "float32"},
+               "lstm_impl": small.model.lstm_impl, "steps": vgg_state["step"],
+               "meta_loss": [r["meta_loss"] for r in vgg_recs],
+               "launches": vgg_counts, "launches_expected": vgg_want}}
+    log(out)
+    if not (state["step"] == steps and ckpts == [2] and restored_equal
+            and adapted_finite
+            and all(math.isfinite(r["meta_loss"]) for r in recs)):
+        raise SystemExit("MAML meta-train / checkpoint / adapt failed")
+    if not (vgg_state["step"] == 1 and small.model.lstm_impl == "scan"
+            and all(math.isfinite(r["meta_loss"]) for r in vgg_recs)):
+        raise SystemExit("the VGG-BLSTM MAML step failed")
+    if counts != want or vgg_counts != vgg_want:
+        raise SystemExit(f"MAML entry launch counts {counts} / {vgg_counts}, "
+                         f"want {want} / {vgg_want}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1104,29 +1529,50 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
-    smi = phase_build()
+    seconds = {}
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__.removeprefix("phase_")] = round(
+            time.perf_counter() - t0, 1)
+        return out
+
+    smi = timed(phase_build)
     part, peaks = card_peaks(kind)
-    log({"card": smi, "peak_rates_of": part, "fp32_flops": peaks[0],
+    log({"card": smi, "torch": torch.__version__, "peak_rates_of": part, "fp32_flops": peaks[0],
          "hbm_bytes_per_s": peaks[1]})
-    k1 = phase_kernel(torch, peaks)
-    serving = phase_serving(torch)
-    phase_parity(torch)
-    k2 = phase_ctc_kernel(torch, peaks)
-    meta = phase_meta_step(torch)
-    entry = phase_train_entry(torch)
-    k3 = phase_lstm_kernel(torch, peaks)
-    mono = phase_mono_step(torch)
-    mono_entry = phase_mono_entry(torch)
+    k1 = timed(phase_kernel, torch, peaks)
+    serving = timed(phase_serving, torch)
+    timed(phase_parity, torch)
+    k2 = timed(phase_ctc_kernel, torch, peaks)
+    meta = timed(phase_meta_step, torch)
+    entry = timed(phase_train_entry, torch)
+    k3 = timed(phase_lstm_kernel, torch, peaks)
+    mono = timed(phase_mono_step, torch)
+    mono_entry = timed(phase_mono_entry, torch)
+    k2b = timed(phase_ctc_hvp_kernel, torch, peaks)
+    maml = timed(phase_maml_step, torch)
+    maml_entry = timed(phase_maml_entry, torch)
+    log({"phase_seconds": seconds})
+    maml_paths = lambda k: {  # noqa: E731
+        "maml_step": maml["launches"][k],
+        "maml_entry": maml_entry["launches"][k],
+        "maml_entry_vgg_blstm": maml_entry["vgg_blstm_maml"]["launches"][k]}
     mono_paths = lambda k: {"mono_step": mono["launches"][k],  # noqa: E731
                             "mono_entry": mono_entry["launches"][k]}
     k1_paths = {"serving": serving["k1_launches"],
                 **{f"meta_step_{c['tasks']}x{c['shots']}": c["k1_launches"]
                    for c in meta["cells"]},
-                "train_entry": entry["k1_launches"], **mono_paths("k1")}
+                "train_entry": entry["k1_launches"], **mono_paths("k1"),
+                **maml_paths("k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
-                "train_entry": entry["k2_launches"], **mono_paths("k2")}
+                "train_entry": entry["k2_launches"], **mono_paths("k2"),
+                **maml_paths("k2")}
     k2_task = k2["shapes"]["per_task"]
+    k2b_shapes = k2b["shapes"]
+    k2b_task = k2b_shapes["fused"]     # [16, 99, 65]: config4's per-task batch
     k3_shapes = k3["shapes"]
     k3_main = k3_shapes["config1"]
     yard = k3["library_yardstick"]
@@ -1170,7 +1616,26 @@ def main() -> int:
         "shape_btuv": k2_task["shape_btuv"], "ms": k2_task["ms"],
         "plain_ms": k2_task["plain_ms"], "bound_ms": k2_task["bound_ms"],
         "bound_by": k2_task["bound_by"],
-        "library_ms": k2_task["library_ms"]}, *lstm_rows]})
+        "library_ms": k2_task["library_ms"]}, {
+        "name": "ctc_hvp", "route": "cuda",
+        "source": "metaasr_tpu_torch/csrc/ctc.cu",
+        "replaces": "metaasr_tpu/ops/ctc_pallas.py:191",
+        "launches": sum(maml_paths("k2b").values()),
+        "launches_by_path": maml_paths("k2b"),
+        "max_abs_err": max(e["hv_max_abs_diff"]
+                           for e in k2b_shapes.values()),
+        "hv_l2rel": max(e["hv_l2rel"] for e in k2b_shapes.values()),
+        "shape_btuv": k2b_task["shape_btuv"], "ms": k2b_task["ms"],
+        "plain_ms": k2b_task["plain_ms"], "bound_ms": k2b_task["bound_ms"],
+        "bound_by": k2b_task["bound_by"],
+        "dependent_steps": k2b_task["dependent_steps"],
+        "library_ms": None,
+        "library_is": "none: no single PyTorch call computes a CTC "
+                      "Hessian-vector product (F.ctc_loss is not twice "
+                      "differentiable); scan_double_backward_ms is autograd "
+                      "of autograd through the scan recursion on the card",
+        "scan_double_backward_ms": k2b_task["scan_double_backward_ms"]},
+        *lstm_rows]})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,7 @@
 
     python -m metaasr_tpu_torch.cli --mode train \
         --config configs/config3_fomaml.yaml --data-dir DIR --workdir WD \
-        [--algo no|multi|fomaml|reptile] [--max-steps N] [--seed N]
+        [--algo no|multi|fomaml|maml|reptile] [--max-steps N] [--seed N]
         [-o key=value]
 
     python -m metaasr_tpu_torch.cli --mode serve --bundle DIR \
@@ -10,8 +10,9 @@
 
 ``train`` trains on the accents of ``--data-dir`` (``<accent>.jsonl``
 manifests, e.g. from ``data.synthetic.generate_dataset``), checkpointing
-under ``<workdir>/ckpts``: meta-training for the algos fomaml and reptile,
-the single-accent baseline for ``no`` (e.g. ``configs/
+under ``<workdir>/ckpts``: meta-training for the algos fomaml, maml (full
+second order, e.g. ``configs/config4_maml.yaml``) and reptile, the
+single-accent baseline for ``no`` (e.g. ``configs/
 config1_mono_vgg_ctc.yaml``, the VGG-BLSTM CTC phone recognizer) and pooled
 multi-accent training for ``multi``, both with periodic dev evaluation
 (``train.eval_every``, ``data.dev_fraction``). ``serve`` transcribes with a
@@ -82,7 +83,7 @@ def build_tokenizer(cfg: Config):
 def make_trainer(cfg: Config, workdir: str, device=None):
     """(trainer, tokenizer) for the configured algo: ``MonoASRTrainer``
     (no), ``MultitaskASRTrainer`` (multi) or ``MetaASRTrainer`` (fomaml,
-    reptile). Held-out accents (``data.heldout_accents``) are kept out of
+    maml, reptile). Held-out accents (``data.heldout_accents``) are kept out of
     the training pool; the baselines evaluate on a per-accent dev split
     (``data.dev_fraction``) or, without one, on the first held-out accent."""
     from metaasr_tpu_torch.data.dataset import load_accent_datasets

@@ -1,5 +1,5 @@
-"""FOMAML and Reptile meta-gradients over parameter dicts (counterpart of
-``metaasr_tpu/meta/maml.py``).
+"""MAML, FOMAML and Reptile meta-gradients over parameter dicts (counterpart
+of ``metaasr_tpu/meta/maml.py``).
 
 Everything here is generic over ``loss_fn(params, batch, generator, train)
 -> (scalar, aux)`` with ``params`` a dict of tensors (the model's parameter
@@ -12,9 +12,14 @@ verbatim by the ASR task.
 - FOMAML detaches the inner gradient's INPUT: ``grad`` is taken at a
   detached copy of ``p_i``, so the adapted parameters depend on the
   originals with identity Jacobian (the first-order approximation) and the
-  outer backward never differentiates the inner gradient. K2 is first order
-  only, so full second-order MAML raises (K2b, the next slice of
-  ROADMAP.md's port queue).
+  outer backward never differentiates the inner gradient.
+- Full MAML (``first_order=False``) is the same code without the detach:
+  the inner gradient is taken at the live parameters with
+  ``create_graph=True``, and the outer backward differentiates it
+  (grad-over-grad). Every op of the loss must then be twice differentiable:
+  the CTC term is (K2's Function routes its posterior through K2b,
+  ``ops/ctc_kernel.py``); K3/K3b are not, so the trainer switches the BLSTM
+  to the autograd loop (``ASRTask.require_full_autodiff``).
 - The task axis is a loop: batches carry a leading task axis [M, k, ...],
   each task runs and back-propagates its query loss / M in turn (one task's
   graph alive at a time), and the outer gradient is the mean over tasks.
@@ -129,12 +134,16 @@ def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
 
     ``inner_scale`` (0/1 gate of every inner update) and ``widen_scale``
     (0/1 gate of the updates of leaves outside ``adapt_filter``) are host
-    numbers, constants to the outer gradient."""
-    if not cfg.first_order:
-        raise NotImplementedError(
-            "second-order MAML differentiates through the inner gradient, "
-            "which needs a twice-differentiable CTC (K2b): the next slice "
-            "of ROADMAP.md's port queue. Use algo fomaml or reptile.")
+    numbers, constants to the outer gradient, as is the clip scale.
+
+    With ``cfg.first_order`` false the adapted parameters keep their graph
+    back to ``params`` through every inner gradient (second-order MAML).
+    The reference's ``meta.remat_inner`` (recompute each inner step: memory,
+    never values) has no counterpart here: the yaml key is accepted and
+    ignored, and the inner steps' activations stay alive until the outer
+    backward, one task at a time under ``maml_grads``. ``chip_smoke.py``'s ``maml_step`` phase reports the peak
+    device memory of that step at config4's width (PERF.md)."""
+    second_order = not cfg.first_order
 
     def one_step(params, generator, batch, inner_scale, widen_scale):
         model, lr = split_lr(params)
@@ -142,19 +151,24 @@ def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
                 else dict.fromkeys(model, True))
         widen = widen_scale is not None
         with torch.enable_grad():
-            # the detach is on the INPUT of the inner gradient (FOMAML)
-            at = {k: v.detach().requires_grad_(mask[k] or widen)
+            # FOMAML detaches the INPUT of the inner gradient; MAML takes it
+            # at the live tensors (a leaf the caller holds without
+            # requires_grad carries no outer gradient either way)
+            at = {k: (v if second_order and v.requires_grad
+                      else v.detach().requires_grad_(mask[k] or widen))
                   for k, v in model.items()}
-            wrt = [k for k in model if at[k].requires_grad]
+            wrt = [k for k in model if mask[k] or widen]
             loss, _ = loss_fn(at, batch, generator, train)
             gs = torch.autograd.grad(loss, [at[k] for k in wrt],
+                                     create_graph=second_order,
                                      allow_unused=True)
         grads = {k: torch.zeros_like(at[k]) if g is None else g
                  for k, g in zip(wrt, gs)}
         if cfg.inner_clip:
             gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                 for k, g in grads.items() if mask[k]))
-            scale = torch.clamp_max(cfg.inner_clip / (gn + 1e-12), 1.0)
+            scale = torch.clamp_max(cfg.inner_clip / (gn + 1e-12),
+                                    1.0).detach()
             grads = {k: g * scale.to(g.dtype) for k, g in grads.items()}
         if inner_scale is not None:
             grads = {k: g * float(inner_scale) for k, g in grads.items()}
@@ -238,9 +252,9 @@ def make_meta_loss(loss_fn: LossFn, cfg: MetaAlgoConfig,
     """Returns ``meta_loss(params, meta_batch, seed, inner_scale=None,
     widen_scale=None) -> (scalar, aux)``: the mean over tasks of the query
     loss after the inner steps, differentiable w.r.t. ``params`` (first
-    order), with per-task query and support losses in ``aux``. It keeps
-    every task's graph; ``maml_grads`` back-propagates task by task
-    instead."""
+    order under FOMAML, through the inner gradients under MAML), with
+    per-task query and support losses in ``aux``. It keeps every task's
+    graph; ``maml_grads`` back-propagates task by task instead."""
     inner_adapt = make_inner_adapt(loss_fn, cfg, train=True)
 
     def meta_loss(params, meta_batch, seed: int, inner_scale=None,
@@ -257,9 +271,10 @@ def make_meta_loss(loss_fn: LossFn, cfg: MetaAlgoConfig,
 def maml_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
                preprocess_fn: Callable | None = None):
     """Returns ``grad_fn(params, meta_batch, seed, inner_scale=None,
-    widen_scale=None) -> (grads, metrics)``, the FOMAML outer gradient:
-    the gradient of ``make_meta_loss``'s loss, accumulated in fp32 one task
-    at a time so that one task's graph is alive at once.
+    widen_scale=None) -> (grads, metrics)``, the outer gradient (FOMAML's,
+    or MAML's with ``cfg.first_order`` false): the gradient of
+    ``make_meta_loss``'s loss, accumulated in fp32 one task at a time so
+    that one task's graph is alive at once.
     ``meta_batch = {"support": {...}, "query": {...}}`` with a leading task
     axis; ``grads`` has the structure and dtypes of ``params``."""
     inner_adapt = make_inner_adapt(loss_fn, cfg, train=True)

@@ -1,20 +1,26 @@
-"""K2: the CTC α/β kernel, its plain PyTorch version, and the loss built on
-it (counterpart of ``metaasr_tpu/ops/ctc_pallas.py``).
+"""K2 and K2b: the CTC α/β kernel and its Hessian-vector product, their
+plain PyTorch versions, and the loss built on them (counterpart of
+``metaasr_tpu/ops/ctc_pallas.py``).
 
 :func:`ctc_alpha_beta` maps label-gathered emissions ``logp_z [B, T, S]``
 to ``(nll [B], grad [B, T, S])``, the gradient being the posterior
-``-exp(α + β + nll)``. On a CPU tensor it runs :func:`plain_ctc_alpha_beta`;
-on a CUDA tensor it launches ``csrc/ctc.cu`` (the source's header gives the
-kernel's design and bound) or raises. There is no size fallback: the kernel
-takes any T.
+``-exp(α + β + nll)``. :func:`ctc_hvp` maps the same inputs and a direction
+``v [B, T, S]`` to ``(hv, nll_dot)``: ``hv = (∂²nll/∂logp_z²)·v``, the
+forward-mode tangent of the α/β recursion, and ``nll_dot = <grad, v>``. On a
+CPU tensor they run :func:`plain_ctc_alpha_beta` / :func:`plain_ctc_hvp`; on
+a CUDA tensor they launch ``csrc/ctc.cu`` (the source's header gives the
+kernels' design and bounds) or raise. There is no size fallback: the
+kernels take any T.
 
 :func:`ctc_loss_kernel` is the counterpart of ``ctc_loss_pallas``: it
 gathers the emissions, builds the skip bias and ``end = 2·label_len``, and
-runs the recursion inside a ``torch.autograd.Function`` whose backward is
+runs the recursion inside :class:`CTCAlphaBeta`, whose backward is
 ``grad_out[:, None, None] * g`` with the kernel's saved ``g``; the gather's
-own backward scatters that to ``[B, T, V]``. The Function is first order
-only (``once_differentiable``): second-order MAML needs K2b (the next
-slice of ROADMAP.md's port queue).
+own backward scatters that to ``[B, T, V]``. The loss is twice
+differentiable, as full second-order MAML needs: a backward that builds a
+graph (``create_graph=True``) routes ``g`` through :class:`CTCPosterior`
+(the counterpart of ``_ctc_pair``), whose backward is K2b. Third order is
+unsupported and raises.
 """
 
 from __future__ import annotations
@@ -22,7 +28,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from metaasr_tpu_torch.constants import BLANK_ID, LOG_EPS
 from metaasr_tpu_torch.ops.ctc import (
@@ -91,35 +96,107 @@ def plain_ctc_alpha_beta(logp_z: torch.Tensor, skip: torch.Tensor,
     return nll[:, 0], grad
 
 
-def _launch(logp_z, skip, lens, end):
+def _lse3_weights(a, b, c):
+    """lse3 and its softmax weights from the same three exponentials:
+    -> (lse, (e_a, e_b, e_c), sum)."""
+    m = torch.maximum(torch.maximum(a, b), c)
+    m_safe = torch.clamp_min(m, LOG_EPS)
+    es = (torch.exp(a - m_safe), torch.exp(b - m_safe), torch.exp(c - m_safe))
+    total = (es[0] + es[1]) + es[2]
+    return m + torch.log(total), es, total
+
+
+def _shift0(x: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`_neighbour` for tangents: lanes with no neighbour get 0."""
+    out = torch.zeros_like(x)
+    if k > 0:
+        out[:, :-k] = x[:, k:]
+    else:
+        out[:, -k:] = x[:, :k]
+    return out
+
+
+def plain_ctc_hvp(logp_z: torch.Tensor, skip: torch.Tensor,
+                  lens: torch.Tensor, end: torch.Tensor, v: torch.Tensor):
+    """K2b's arithmetic as torch ops over [B, S] rows, in the same order:
+    -> (hv [B, T, S], nll_dot [B]). The forward-mode tangent of
+    :func:`plain_ctc_alpha_beta` along ``v``: α̇ and β̇ run beside α and β with
+    the softmax weights of each lse3; an unreachable state (α or β below
+    ``LOG_EPS / 2``) has tangent 0; an infeasible row gives 0 (the clamped
+    loss is constant there)."""
+    bsz, t_len, s_len = logp_z.shape
+    lens = lens.to(torch.int64)[:, None]
+    end = end.to(torch.int64)[:, None]
+    dead = 0.5 * LOG_EPS
+    lane = torch.arange(s_len, device=logp_z.device)[None, :]
+    emits = (lane == 0) | ((lane == 1) & (end > 0))
+    alpha = torch.where(emits, logp_z[:, 0], LOG_EPS)
+    adot = torch.where(emits, v[:, 0], 0.0)
+    a_hist, ad_hist = [alpha], [adot]
+    for t in range(1, t_len):
+        lse, (e0, e1, e2), total = _lse3_weights(
+            alpha, _neighbour(alpha, -1), _neighbour(alpha, -2) + skip)
+        new = logp_z[:, t] + lse
+        mix = ((e0 * adot + e1 * _shift0(adot, -1))
+               + e2 * _shift0(adot, -2)) / total
+        new_dot = torch.where(new > dead, v[:, t] + mix, 0.0)
+        alpha = torch.where(t < lens, new, alpha)
+        adot = torch.where(t < lens, new_dot, adot)
+        a_hist.append(alpha)
+        ad_hist.append(adot)
+    a_last = torch.gather(alpha, 1, end)
+    prev_at = torch.clamp_min(end - 1, 0)
+    a_prev = torch.where(end > 0, torch.gather(alpha, 1, prev_at), LOG_EPS)
+    m = torch.where(end > 0, torch.maximum(a_last, a_prev), a_last)
+    m_safe = torch.clamp_min(m, LOG_EPS)
+    e_last = torch.exp(a_last - m_safe)
+    e_prev = torch.where(end > 0, torch.exp(a_prev - m_safe), 0.0)
+    total = torch.where(end > 0, e_last + e_prev, e_last)
+    nll = -(m + torch.log(total))                             # [B, 1]
+    feasible = ~(nll > -dead)
+    d_last = torch.gather(adot, 1, end)
+    d_prev = torch.where(end > 0, torch.gather(adot, 1, prev_at), 0.0)
+    nll_dot = torch.where(
+        feasible, -((e_last * d_last + e_prev * d_prev) / total), 0.0)
+
+    pick = (lane == end) | ((lane == end - 1) & (end > 0))
+    beta_init = torch.where(pick, 0.0, LOG_EPS)
+    hv = torch.empty_like(logp_z)
+    carry, carry_dot = beta_init, torch.zeros_like(beta_init)
+    for t in range(t_len - 1, -1, -1):
+        at_last = t >= lens - 1
+        beta_t = torch.where(at_last, beta_init, carry)
+        bdot = torch.where(at_last, 0.0, carry_dot)
+        g = -torch.exp(a_hist[t] + beta_t + nll)
+        hv[:, t] = torch.where((t < lens) & feasible,
+                               g * ((ad_hist[t] + bdot) + nll_dot), 0.0)
+        cur = beta_t + logp_z[:, t]
+        cur_dot = bdot + v[:, t]
+        carry, (e0, e1, e2), total = _lse3_weights(
+            cur, _neighbour(cur, 1), _neighbour(cur + skip, 2))
+        mix = ((e0 * cur_dot + e1 * _shift0(cur_dot, 1))
+               + e2 * _shift0(cur_dot, 2)) / total
+        carry_dot = torch.where(carry > dead, mix, 0.0)
+    return hv, nll_dot[:, 0]
+
+
+def _library():
     from metaasr_tpu_torch.ops import _build
 
     lib = _build.load("ctc")
-    fn = lib.metaasr_ctc_alpha_beta
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.metaasr_ctc_max_lanes.restype = ctypes.c_int
-    bsz, t_len, s_len = logp_z.shape
-    if s_len > lib.metaasr_ctc_max_lanes():
-        raise ValueError(f"S={s_len} exceeds the kernel's "
-                         f"{lib.metaasr_ctc_max_lanes()} lanes")
-    nll = torch.empty((bsz,), dtype=torch.float32, device=logp_z.device)
-    grad = torch.empty_like(logp_z)
-    stream = torch.cuda.current_stream(logp_z.device).cuda_stream
-    rc = fn(logp_z.data_ptr(), skip.data_ptr(), lens.data_ptr(),
-            end.data_ptr(), nll.data_ptr(), grad.data_ptr(),
-            bsz, t_len, s_len, stream)
-    if rc != 0:
-        raise RuntimeError(f"ctc kernel launch failed: cudaError {rc}")
-    ctc_alpha_beta.launches += 1
-    return nll, grad
+    lib.metaasr_ctc_alpha_beta.restype = ctypes.c_int
+    lib.metaasr_ctc_alpha_beta.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.metaasr_ctc_hvp.restype = ctypes.c_int
+    lib.metaasr_ctc_hvp.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return lib
 
 
-def ctc_alpha_beta(logp_z: torch.Tensor, skip: torch.Tensor,
-                   lens: torch.Tensor, end: torch.Tensor):
-    """logp_z [B, T, S] f32, skip [B, S] f32, lens/end [B] int32 ->
-    (nll [B], grad [B, T, S]). A CPU tensor runs the plain version; a CUDA
-    tensor launches K2 (counted in ``launches``) or raises."""
+def _check(logp_z, skip, lens, end, v=None) -> bool:
+    """Raise on what the kernels do not take; -> True when the tensors lie
+    on a CUDA device (launch), False on the CPU (plain version)."""
     if logp_z.dim() != 3 or logp_z.dtype != torch.float32:
         raise ValueError(f"logp_z must be [B, T, S] float32, got "
                          f"{tuple(logp_z.shape)} {logp_z.dtype}")
@@ -132,49 +209,134 @@ def ctc_alpha_beta(logp_z: torch.Tensor, skip: torch.Tensor,
     for name, x in (("lens", lens), ("end", end)):
         if x.shape != (bsz,):
             raise ValueError(f"{name} must be [{bsz}], got {tuple(x.shape)}")
-    if any(x.device != logp_z.device for x in (skip, lens, end)):
+    tensors = [logp_z, skip, lens, end]
+    if v is not None:
+        if v.shape != logp_z.shape or v.dtype != torch.float32:
+            raise ValueError(f"v must be {tuple(logp_z.shape)} float32, got "
+                             f"{tuple(v.shape)} {v.dtype}")
+        tensors.append(v)
+    if any(x.device != logp_z.device for x in tensors):
         raise ValueError("all inputs must be on one device")
     if logp_z.device.type == "cpu":
-        return plain_ctc_alpha_beta(logp_z, skip, lens, end)
+        return False
     if logp_z.device.type != "cuda":
         raise ValueError(f"unsupported device {logp_z.device}")
     if lens.dtype != torch.int32 or end.dtype != torch.int32:
         raise ValueError("lens and end must be int32")
-    if not all(x.is_contiguous() for x in (logp_z, skip, lens, end)):
+    if not all(x.is_contiguous() for x in tensors):
         raise ValueError("inputs must be contiguous")
-    return _launch(logp_z, skip, lens, end)
+    return True
+
+
+def _check_lanes(lib, s_len: int) -> None:
+    if s_len > lib.metaasr_ctc_max_lanes():
+        raise ValueError(f"S={s_len} exceeds the kernel's "
+                         f"{lib.metaasr_ctc_max_lanes()} lanes")
+
+
+def ctc_alpha_beta(logp_z: torch.Tensor, skip: torch.Tensor,
+                   lens: torch.Tensor, end: torch.Tensor):
+    """logp_z [B, T, S] f32, skip [B, S] f32, lens/end [B] int32 ->
+    (nll [B], grad [B, T, S]). A CPU tensor runs the plain version; a CUDA
+    tensor launches K2 (counted in ``launches``) or raises."""
+    if not _check(logp_z, skip, lens, end):
+        return plain_ctc_alpha_beta(logp_z, skip, lens, end)
+    lib = _library()
+    bsz, t_len, s_len = logp_z.shape
+    _check_lanes(lib, s_len)
+    nll = torch.empty((bsz,), dtype=torch.float32, device=logp_z.device)
+    grad = torch.empty_like(logp_z)
+    stream = torch.cuda.current_stream(logp_z.device).cuda_stream
+    rc = lib.metaasr_ctc_alpha_beta(
+        logp_z.data_ptr(), skip.data_ptr(), lens.data_ptr(), end.data_ptr(),
+        nll.data_ptr(), grad.data_ptr(), bsz, t_len, s_len, stream)
+    if rc != 0:
+        raise RuntimeError(f"ctc kernel launch failed: cudaError {rc}")
+    ctc_alpha_beta.launches += 1
+    return nll, grad
 
 
 ctc_alpha_beta.launches = 0
 
 
-@once_differentiable
-def _scale_posterior(ctx, grad_out):
-    (g,) = ctx.saved_tensors
-    return grad_out[:, None, None] * g, None, None, None
+def ctc_hvp(logp_z: torch.Tensor, skip: torch.Tensor, lens: torch.Tensor,
+            end: torch.Tensor, v: torch.Tensor):
+    """K2's inputs and a direction v [B, T, S] f32 -> (hv [B, T, S] =
+    (∂²nll/∂logp_z²)·v, nll_dot [B] = <grad, v>). A CPU tensor runs the
+    plain version; a CUDA tensor launches K2b (counted in ``launches``) or
+    raises. The α̇ history is a [B, T, S] scratch allocated here."""
+    if not _check(logp_z, skip, lens, end, v):
+        return plain_ctc_hvp(logp_z, skip, lens, end, v)
+    lib = _library()
+    bsz, t_len, s_len = logp_z.shape
+    _check_lanes(lib, s_len)
+    hv = torch.empty_like(logp_z)
+    scratch = torch.empty_like(logp_z)
+    nll_dot = torch.empty((bsz,), dtype=torch.float32, device=logp_z.device)
+    stream = torch.cuda.current_stream(logp_z.device).cuda_stream
+    rc = lib.metaasr_ctc_hvp(
+        logp_z.data_ptr(), skip.data_ptr(), lens.data_ptr(), end.data_ptr(),
+        v.data_ptr(), scratch.data_ptr(), hv.data_ptr(), nll_dot.data_ptr(),
+        bsz, t_len, s_len, stream)
+    if rc != 0:
+        raise RuntimeError(f"ctc hvp kernel launch failed: cudaError {rc}")
+    ctc_hvp.launches += 1
+    return hv, nll_dot
+
+
+ctc_hvp.launches = 0
+
+
+class CTCPosterior(torch.autograd.Function):
+    """The posterior gradient ``g = ∂nll/∂logp_z`` as a differentiable
+    function of ``logp_z`` (counterpart of ``_ctc_pair``). The forward
+    reuses the tensor K2 computed in :class:`CTCAlphaBeta`'s forward, passed
+    in as ``g``: it does not launch K2 again. The backward is K2b: the
+    Hessian is symmetric, so the cotangent of ``g`` goes in as the direction.
+    First order only: third-order differentiation raises."""
+
+    @staticmethod
+    def forward(ctx, logp_z, skip, lens, end, g):
+        ctx.save_for_backward(logp_z, skip, lens, end)
+        return g.view_as(g)
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "third-order differentiation of the CTC loss is unsupported: "
+                "the Hessian-vector product (K2b) is not differentiable "
+                "again; full MAML needs exactly two orders")
+        logp_z, skip, lens, end = ctx.saved_tensors
+        hv, _ = ctc_hvp(logp_z, skip, lens, end, cotangent.contiguous())
+        return hv, None, None, None, None
 
 
 class CTCAlphaBeta(torch.autograd.Function):
     """nll [B] from K2 in forward; backward scales the kernel's posterior
-    gradient by the incoming cotangent. First order only: a backward that
-    builds a graph for a second one (``create_graph=True``, as second-order
-    MAML does) raises, since the posterior would enter it as a constant and
-    the CTC Hessian term would silently vanish."""
+    gradient ``g`` by the incoming cotangent. Under a plain backward ``g``
+    is the saved tensor, a constant. Under a backward that builds a graph
+    (``create_graph=True``, as second-order MAML's inner gradient does) ``g``
+    goes through :class:`CTCPosterior`, so the outer backward reaches the
+    CTC Hessian through K2b instead of silently dropping it.
+
+    The forward cannot know which backward will follow, so it saves K2's
+    inputs beside ``g`` on every path: a first-order caller launches exactly
+    what it would without K2b, but keeps one more [B, T, S] fp32 tensor
+    (``logp_z``) alive per CTC call until its backward has run."""
 
     @staticmethod
     def forward(ctx, logp_z, skip, lens, end):
         nll, grad = ctc_alpha_beta(logp_z, skip, lens, end)
-        ctx.save_for_backward(grad)
+        ctx.save_for_backward(logp_z, skip, lens, end, grad)
         return nll
 
     @staticmethod
     def backward(ctx, grad_out):
+        logp_z, skip, lens, end, g = ctx.saved_tensors
         if torch.is_grad_enabled():
-            raise RuntimeError(
-                "the CTC alpha/beta Function is first order only; a "
-                "differentiable backward (create_graph=True) needs K2b, "
-                "the next slice of ROADMAP.md's port queue")
-        return _scale_posterior(ctx, grad_out)
+            g = CTCPosterior.apply(logp_z, skip, lens, end, g)
+        return grad_out[:, None, None] * g, None, None, None
 
 
 def ctc_forward_kernel(log_probs: torch.Tensor, logit_lens: torch.Tensor,

@@ -6,7 +6,8 @@ generator, train)``: waveform -> fbank (K1) -> CMVN -> SpecAugment -> model
 -> joint CTC/attention loss (transformer) or CTC loss (VGG-BLSTM, whose
 recurrences run in K3/K3b, ``ops/lstm_kernel.py``, unless
 ``model.lstm_impl`` is ``scan``), with the CTC term through K2
-(``ops/ctc_kernel.py``) or the scan backend (``model.ctc_impl``). ``params``
+(``ops/ctc_kernel.py``; twice differentiable through K2b) or the scan
+backend (``model.ctc_impl``). ``params``
 is a dict over the model's parameter names; the model runs through
 ``torch.func.functional_call``, so the meta-learning code adapts plain
 tensors. Randomness (dither, SpecAugment, dropout) comes from the caller's
@@ -107,8 +108,9 @@ class ASRTask:
 
     def require_full_autodiff(self) -> None:
         """Make every op of the loss twice differentiable (second-order
-        MAML differentiates through the loss gradient): K3b's Function is
-        first order only, so the BLSTM switches to the autograd loop."""
+        MAML differentiates through the loss gradient). The CTC Functions
+        are (their second order is K2b); K3b's Function is first order only,
+        so the BLSTM switches to the autograd loop."""
         if self.arch == "vgg_blstm" and self.cfg.model.lstm_impl != "scan":
             self.cfg.model.lstm_impl = "scan"
             self._module = None

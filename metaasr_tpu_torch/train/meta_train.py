@@ -3,9 +3,10 @@
 
 - ``meta_train``: the outer loop over meta-batches of accent tasks. One
   step: per task, the front-end once, the inner SGD steps on the support
-  set, the query loss and its backward (FOMAML), or the inner steps on
-  support + query and the parameter delta (Reptile); then the outer Adam
-  update of the mean over tasks.
+  set, the query loss and its backward (FOMAML; under MAML that backward
+  also runs through the inner gradients), or the inner steps on support +
+  query and the parameter delta (Reptile); then the outer Adam update of
+  the mean over tasks.
 - ``meta_adapt``: a fresh copy of the meta parameters and ``adapt_steps``
   inner SGD steps on a held-out accent's k-shot support set; its result
   feeds ``ServingDecoder``'s hot-swapped parameters.
@@ -112,6 +113,11 @@ class MetaASRTrainer:
         self.tokenizer = tokenizer
         self.accent_datasets = accent_datasets
         self.heldout_datasets = heldout_datasets
+        if cfg.meta.algo == "maml":
+            # second order: every op of the loss must be twice
+            # differentiable. The CTC Functions are (K2b); K3/K3b are not,
+            # so the BLSTM switches to the autograd loop.
+            task.require_full_autodiff()
         self.optimizer = make_optimizer(cfg.optimizer, cfg.model.d_model)
         self.ckpt = CheckpointManager(f"{workdir}/ckpts",
                                       keep=cfg.train.keep_ckpts)

@@ -1,11 +1,16 @@
-"""Port vs reference: CTC (the scan backend and K2's plain α/β through its
-``autograd.Function``) and the joint loss pieces.
+"""Port vs reference: CTC (the scan backend, K2's plain α/β and K2b's plain
+Hessian-vector product through their ``autograd.Function``s) and the joint
+loss pieces.
 
 The reference side is ``metaasr_tpu.ops.ctc.ctc_loss`` and
 ``ctc_loss_pallas(interpret=True)``; bars as ``tests/test_m3_pallas.py``:
 loss rtol=atol=1e-5, gradient w.r.t. the logits rtol 1e-4, atol 1e-5. One
 batch holds ragged T, an empty label, an infeasible row (T too short) and
-repeated labels.
+repeated labels. Second order (``tests/test_m3_pallas.py:69-102``'s bar,
+rtol 1e-3, atol 1e-5): the Hessian-vector product against the reference's
+``jax.jvp(jax.grad(loss))`` and reverse-over-reverse, through the scan and
+through the Pallas kernel in interpret mode, at that test's shape and on the
+ragged batch.
 """
 
 import jax
@@ -97,18 +102,195 @@ def test_plain_alpha_beta_posterior_is_the_scan_gradient():
                                atol=1e-5)
 
 
-def test_double_backward_raises():
-    """Second order through the Function raises instead of dropping the CTC
-    Hessian term."""
+# ---------------- second order: K2b's plain version ----------------
+
+def _m3_inputs():
+    """tests/test_m3_pallas.py::test_pallas_ctc_second_order_matches_scan's
+    shape: every row feasible, full label lengths drawn at random."""
+    bsz, t_len, u_len, vocab = 4, 16, 5, 8
+    rng = np.random.default_rng(5)
+    logits = rng.standard_normal((bsz, t_len, vocab)).astype(np.float32)
+    t_lens = rng.integers(u_len * 2 + 1, t_len + 1, bsz).astype(np.int32)
+    labels = rng.integers(1, vocab, (bsz, u_len)).astype(np.int32)
+    u_lens = rng.integers(1, u_len + 1, bsz).astype(np.int32)
+    return logits, t_lens, labels, u_lens
+
+
+HVP_INPUTS = {"m3": _m3_inputs, "ragged": _inputs}
+
+
+def _direction(shape):
+    return np.random.default_rng(7).standard_normal(shape).astype(np.float32)
+
+
+_REF_HVP = {}
+
+
+def _ref_hvp(which, fn_name, mode, of_logits):
+    """The reference's Hessian-vector product along ``_direction``, w.r.t.
+    the logits (through log_softmax) or w.r.t. the log-probs taken as free
+    inputs; forward-over-reverse (``jvp``) or reverse-over-reverse."""
+    key = (which, fn_name, mode, of_logits)
+    if key not in _REF_HVP:
+        logits, t_lens, labels, u_lens = HVP_INPUTS[which]()
+        fn = (ref_ctc_loss if fn_name == "scan"
+              else lambda *a: ctc_loss_pallas(*a, interpret=True))
+
+        def loss(x):
+            lp = jax.nn.log_softmax(x, -1) if of_logits else x
+            return fn(lp, jnp.asarray(t_lens), jnp.asarray(labels),
+                      jnp.asarray(u_lens)).sum()
+
+        x = jnp.asarray(logits)
+        if not of_logits:
+            x = jax.nn.log_softmax(x, -1)
+        v = jnp.asarray(_direction(logits.shape))
+        if mode == "jvp":
+            out = jax.jvp(jax.grad(loss), (x,), (v,))[1]
+        else:
+            out = jax.grad(lambda y: (jax.grad(loss)(y) * v).sum())(x)
+        _REF_HVP[key] = np.asarray(out)
+    return _REF_HVP[key]
+
+
+@pytest.mark.parametrize("mode", ["jvp", "rev_over_rev"])
+@pytest.mark.parametrize("ref", ["scan", "pallas"])
+@pytest.mark.parametrize("which", list(HVP_INPUTS))
+def test_plain_hvp_matches_reference(which, ref, mode):
+    """``plain_ctc_hvp`` on the gathered emissions, scattered back through
+    the gather (which is linear), against the reference's product w.r.t.
+    the log-probs."""
+    logits, t_lens, labels, u_lens = HVP_INPUTS[which]()
+    lab = torch.from_numpy(labels)
+    lp = torch.log_softmax(torch.from_numpy(logits), -1).requires_grad_(True)
+    z = ctc.extend_labels(lab)
+    logp_z = ctc.gather_emissions(lp, z)
+    v_z = ctc.gather_emissions(torch.from_numpy(_direction(logits.shape)), z)
+    hv, nll_dot = ctc_kernel.plain_ctc_hvp(
+        logp_z.detach().contiguous(), ctc.skip_bias(z),
+        torch.from_numpy(t_lens), 2 * torch.from_numpy(u_lens),
+        v_z.contiguous())
+    assert torch.isfinite(hv).all() and torch.isfinite(nll_dot).all()
+    logp_z.backward(hv)
+    want = _ref_hvp(which, ref, mode, of_logits=False)
+    np.testing.assert_allclose(lp.grad.numpy(), want, rtol=1e-3, atol=1e-5)
+    _, g = ctc_kernel.plain_ctc_alpha_beta(
+        logp_z.detach().contiguous(), ctc.skip_bias(z),
+        torch.from_numpy(t_lens), 2 * torch.from_numpy(u_lens))
+    feasible = np.ones(len(t_lens), bool)
+    if which == "ragged":
+        feasible[3] = False
+        assert np.all(hv[3].numpy() == 0.0) and float(nll_dot[3]) == 0.0
+        assert np.all(hv[1, 20:].numpy() == 0.0)           # frames past T
+    np.testing.assert_allclose(
+        nll_dot.numpy()[feasible],
+        (g * v_z).sum((1, 2)).numpy()[feasible], rtol=1e-4, atol=1e-5)
+
+
+def _port_hvp(fn, which, create_graph=False):
+    """autograd.grad(<grad(loss), v>) w.r.t. the logits."""
+    logits, t_lens, labels, u_lens = HVP_INPUTS[which]()
+    x = torch.tensor(logits, requires_grad=True)
+    nll = fn(torch.log_softmax(x, -1), torch.from_numpy(t_lens),
+             torch.from_numpy(labels), torch.from_numpy(u_lens))
+    (g,) = torch.autograd.grad(nll.sum(), x, create_graph=True)
+    inner = (g * torch.from_numpy(_direction(logits.shape))).sum()
+    (hv,) = torch.autograd.grad(inner, x, create_graph=create_graph)
+    return hv
+
+
+@pytest.mark.parametrize("ref", ["scan", "pallas"])
+@pytest.mark.parametrize("which", list(HVP_INPUTS))
+def test_functions_hvp_matches_reference(which, ref):
+    """The Functions' double backward (CTCAlphaBeta -> CTCPosterior -> K2b's
+    plain version), chained through the gather and log_softmax by autograd,
+    against the reference's reverse-over-reverse w.r.t. the logits."""
+    got = _port_hvp(ctc_kernel.ctc_loss_kernel, which).numpy()
+    want = _ref_hvp(which, ref, "rev_over_rev", of_logits=True)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5)
+    if which == "ragged":
+        assert np.all(got[3] == 0.0)                       # zero_infinity
+
+
+@pytest.mark.parametrize("which", list(HVP_INPUTS))
+def test_functions_hvp_equals_autograd_of_the_scan(which):
+    got = _port_hvp(ctc_kernel.ctc_loss_kernel, which).numpy()
+    want = _port_hvp(ctc.ctc_loss, which).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5)
+    assert np.abs(want).max() > 1e-2                       # not trivially 0
+
+
+def test_third_order_raises():
+    """K2b is not differentiable again: a double backward that itself builds
+    a graph raises instead of treating the Hessian as a constant."""
+    with pytest.raises(RuntimeError, match="third-order"):
+        _port_hvp(ctc_kernel.ctc_loss_kernel, "m3", create_graph=True)
+
+
+def test_first_order_backward_reuses_the_saved_posterior(monkeypatch):
+    """Without create_graph the backward multiplies K2's saved gradient and
+    never reaches K2b; with it, K2 is not run again (the posterior is
+    reused) and K2b runs once per double backward."""
+    calls = {"k2": 0, "k2b": 0}
+    plain_ab, plain_hvp = (ctc_kernel.plain_ctc_alpha_beta,
+                           ctc_kernel.plain_ctc_hvp)
+
+    def count(name, fn):
+        def wrapped(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapped
+
+    monkeypatch.setattr(ctc_kernel, "plain_ctc_alpha_beta",
+                        count("k2", plain_ab))
+    monkeypatch.setattr(ctc_kernel, "plain_ctc_hvp", count("k2b", plain_hvp))
     logits, t_lens, labels, u_lens = _inputs()
-    x = torch.tensor(logits[:2], requires_grad=True)
+    x = torch.tensor(logits, requires_grad=True)
     nll = ctc_kernel.ctc_loss_kernel(
-        torch.log_softmax(x, -1), torch.from_numpy(t_lens[:2]),
-        torch.from_numpy(labels[:2]), torch.from_numpy(u_lens[:2]))
-    with pytest.raises(RuntimeError, match="first order only"):
-        torch.autograd.grad(nll.sum(), x, create_graph=True)
-    (g,) = torch.autograd.grad(nll.sum(), x)          # first order works
-    assert torch.isfinite(g).all()
+        torch.log_softmax(x, -1), torch.from_numpy(t_lens),
+        torch.from_numpy(labels), torch.from_numpy(u_lens))
+    (g,) = torch.autograd.grad(nll.sum(), x, retain_graph=True)
+    assert calls == {"k2": 1, "k2b": 0} and not g.requires_grad
+    (g2,) = torch.autograd.grad(nll.sum(), x, create_graph=True)
+    assert calls == {"k2": 1, "k2b": 0}
+    torch.testing.assert_close(g2.detach(), g)
+    torch.autograd.grad(g2.square().sum(), x)
+    assert calls == {"k2": 1, "k2b": 1}
+    assert ctc_kernel.ctc_hvp.launches == 0                # CPU: plain version
+
+
+def test_hvp_checks_inputs():
+    lp = torch.zeros((2, 4, 5))
+    skip = torch.zeros((2, 5))
+    lens = torch.full((2,), 4, dtype=torch.int32)
+    end = torch.full((2,), 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="v must be"):
+        ctc_kernel.ctc_hvp(lp, skip, lens, end, lp[:, :3])
+    with pytest.raises(ValueError, match="v must be"):
+        ctc_kernel.ctc_hvp(lp, skip, lens, end, lp.double())
+    with pytest.raises(ValueError, match="float32"):
+        ctc_kernel.ctc_hvp(lp.double(), skip, lens, end, lp)
+    hv, nll_dot = ctc_kernel.ctc_hvp(lp, skip, lens, end, torch.ones_like(lp))
+    assert hv.shape == (2, 4, 5) and nll_dot.shape == (2,)
+
+
+def test_hvp_is_symmetric_and_annihilates_constants():
+    """H is symmetric (<u, Hv> = <v, Hu>), which is why one product serves
+    forward-over-reverse and reverse-over-reverse."""
+    logits, t_lens, labels, u_lens = _m3_inputs()
+    lab = torch.from_numpy(labels)
+    z = ctc.extend_labels(lab)
+    logp_z = ctc.gather_emissions(
+        torch.log_softmax(torch.from_numpy(logits), -1), z).contiguous()
+    args = (logp_z, ctc.skip_bias(z), torch.from_numpy(t_lens),
+            2 * torch.from_numpy(u_lens))
+    rng = np.random.default_rng(11)
+    u, v = (torch.from_numpy(rng.standard_normal(
+        tuple(logp_z.shape)).astype(np.float32)) for _ in range(2))
+    hu, _ = ctc_kernel.plain_ctc_hvp(*args, u)
+    hv, _ = ctc_kernel.plain_ctc_hvp(*args, v)
+    np.testing.assert_allclose(float((u * hv).sum()), float((v * hu).sum()),
+                               rtol=1e-4)
 
 
 def test_alpha_beta_checks_inputs():

@@ -6,7 +6,9 @@ tiny transformer (d=32, 2 heads, 2+2 layers) over the ASR task: 2 tasks x
 (2 support + 2 query) utterances of <= 8,000 samples, U <= 6, 2 inner
 steps. Dropout 0, SpecAugment off and dither 0, so ``train=True`` is
 deterministic in both packages. The same Flax weights go into both through
-``weights.py``. Then the analytic quadratic checks on the port alone.
+``weights.py``. Then the analytic quadratic checks on the port alone,
+first order and second order (the second-order comparisons with the
+reference are in ``tests/test_torch_maml.py``).
 """
 
 import jax
@@ -154,11 +156,6 @@ def test_reptile_delta_matches_reference(setup):
     got_flat = flatten_tree(params_to_flax(got, num_heads=2))
     worst = max(_l2rel(got_flat[k], want_flat[k]) for k in want_flat)
     assert worst <= 1e-3, worst
-
-
-def test_second_order_raises_naming_k2b():
-    with pytest.raises(NotImplementedError, match="K2b"):
-        maml.maml_grads(lambda *a: None, maml.MetaAlgoConfig(first_order=False))
 
 
 def test_adapt_mask_uses_reference_paths(setup):
@@ -311,3 +308,119 @@ def test_quadratic_inner_scale_zero_is_no_op():
         {"w": w}, {"support": {"c": c_s[None]}, "query": {"c": c_q[None]}},
         0, inner_scale=0.0)
     torch.testing.assert_close(grads["w"], w - c_q)
+
+
+# ---------------- second order on the quadratic family ----------------
+
+def aquad_loss(params, batch, generator, train):
+    """0.5 (w - c)^T A (w - c): one inner step is w - lr A (w - c), whose
+    Jacobian is I - lr A."""
+    del generator, train
+    diff = params["w"] - batch["c"]
+    return 0.5 * torch.dot(diff, batch["A"] @ diff), {}
+
+
+# float64 problems; the outer gradient is accumulated in fp32, hence 1e-6
+
+
+def _aquad(d=5, seed=0):
+    rng = np.random.default_rng(seed)
+    w, c_s, c_q = (torch.tensor(rng.standard_normal(d), dtype=torch.float64)
+                   for _ in range(3))
+    r = torch.tensor(rng.standard_normal((d, d)), dtype=torch.float64)
+    a = r @ r.T / d + 0.5 * torch.eye(d, dtype=torch.float64)
+    mb = {"support": {"c": c_s[None], "A": a[None]},
+          "query": {"c": c_q[None], "A": a[None]}}
+    return w, c_s, c_q, a, mb
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_quadratic_maml_gradient_closed_form(k):
+    """Second-order meta-gradient: (I - lr A)^k applied to the query
+    gradient A (w_k - c_q) at the adapted point."""
+    w, c_s, c_q, a, mb = _aquad()
+    lr = 0.1
+    step = torch.eye(5, dtype=torch.float64) - lr * a
+    w_k = w
+    for _ in range(k):
+        w_k = w_k - lr * a @ (w_k - c_s)
+    want = torch.linalg.matrix_power(step, k) @ (a @ (w_k - c_q))
+    cfg = maml.MetaAlgoConfig(inner_lr=lr, inner_steps=k, first_order=False)
+    grads, metrics = maml.maml_grads(aquad_loss, cfg)({"w": w}, mb, 0)
+    torch.testing.assert_close(grads["w"], want, rtol=1e-6, atol=1e-7)
+    first, _ = maml.maml_grads(aquad_loss, maml.MetaAlgoConfig(
+        inner_lr=lr, inner_steps=k))({"w": w}, mb, 0)
+    torch.testing.assert_close(first["w"], a @ (w_k - c_q), rtol=1e-6,
+                               atol=1e-12)
+    assert not torch.allclose(grads["w"], first["w"], rtol=1e-3)
+    diff = w_k - c_q
+    np.testing.assert_allclose(float(metrics["meta_loss"]),
+                               0.5 * float(diff @ a @ diff), rtol=1e-6)
+
+
+def test_quadratic_maml_meta_loss_is_differentiable_at_second_order():
+    w, c_s, c_q, a, mb = _aquad()
+    lr, k = 0.1, 2
+    w = w.clone().requires_grad_(True)
+    cfg = maml.MetaAlgoConfig(inner_lr=lr, inner_steps=k, first_order=False)
+    loss, _ = maml.make_meta_loss(aquad_loss, cfg)({"w": w}, mb, 0)
+    loss.backward()
+    want, _ = maml.maml_grads(aquad_loss, cfg)({"w": w.detach()}, mb, 0)
+    torch.testing.assert_close(w.grad, want["w"], rtol=1e-6, atol=1e-7)
+
+
+def test_quadratic_maml_meta_sgd_gradients():
+    """Meta-SGD under second order, one step: w1 = w - a A (w - c_s);
+    dL/dw = (I - a A) A (w1 - c_q), dL/da = -(A (w1 - c_q)) . (A (w - c_s))."""
+    w, c_s, c_q, a, mb = _aquad()
+    rate = 0.1
+    cfg = maml.MetaAlgoConfig(inner_lr=rate, inner_steps=1, first_order=False)
+    params = maml.wrap_lr({"w": w}, rate)
+    grads, _ = maml.maml_grads(aquad_loss, cfg)(params, mb, 0)
+    g_s = a @ (w - c_s)
+    w1 = w - np.float32(rate).item() * g_s      # the rate is an fp32 leaf
+    g_q = a @ (w1 - c_q)
+    eye = torch.eye(5, dtype=torch.float64)
+    torch.testing.assert_close(
+        grads["model"]["w"], (eye - np.float32(rate).item() * a) @ g_q,
+        rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(float(grads["inner_lr"]["w"]),
+                               -float(g_q @ g_s), rtol=1e-6)
+
+
+def test_quadratic_maml_clip_scale_is_a_constant():
+    """Under an active clip the step is lr * s * g with s = clip / |g| held
+    constant: the Jacobian is I - lr s A, with no term from d s / d w."""
+    w, c_s, c_q, a, mb = _aquad()
+    lr = 0.1
+    g_s = a @ (w - c_s)
+    clip = 0.25 * float(torch.linalg.norm(g_s))
+    scale = np.float32(clip / (np.float32(torch.linalg.norm(g_s).item())
+                               + np.float32(1e-12))).item()
+    w1 = w - lr * scale * g_s
+    want = (torch.eye(5, dtype=torch.float64) - lr * scale * a) @ (
+        a @ (w1 - c_q))
+    cfg = maml.MetaAlgoConfig(inner_lr=lr, inner_steps=1, first_order=False,
+                              inner_clip=clip)
+    grads, _ = maml.maml_grads(aquad_loss, cfg)({"w": w}, mb, 0)
+    torch.testing.assert_close(grads["w"], want, rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("gate", ["inner_scale", "widen_scale"])
+def test_quadratic_maml_gates_are_constants(gate):
+    """inner_scale 0 (and widen_scale 0 on a leaf outside adapt_filter)
+    makes the inner loop a no-op: the outer gradient is the query gradient
+    at w."""
+    w, c_s, c_q, a, mb = _aquad()
+    kw = {"inner_scale": 0.0} if gate == "inner_scale" else {"widen_scale": 0.0}
+
+    def loss(params, batch, generator, train):
+        base, _ = aquad_loss({"w": params["encoder.w"]}, batch, None, train)
+        return base + 0.5 * torch.sum(params["decoder.v"] ** 2), {}
+
+    params = {"encoder.w": w, "decoder.v": torch.ones(2, dtype=torch.float64)}
+    cfg = maml.MetaAlgoConfig(inner_lr=0.1, inner_steps=2, first_order=False,
+                              adapt_filter=("decoder",))
+    grads, _ = maml.maml_grads(loss, cfg)(params, mb, 0, **kw)
+    torch.testing.assert_close(grads["encoder.w"], a @ (w - c_q),
+                               rtol=1e-6, atol=1e-7)

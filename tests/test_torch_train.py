@@ -38,7 +38,7 @@ from metaasr_tpu_torch.models.losses import prepare_decoder_targets
 from metaasr_tpu_torch.serve.export import ServingDecoder, write_bundle
 from metaasr_tpu_torch.train import optimizer
 from metaasr_tpu_torch.train.checkpoint import load_params_npz, save_params_npz
-from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
+from metaasr_tpu_torch.train.meta_train import MetaASRTrainer, to_device
 from metaasr_tpu_torch.weights import flax_to_params, params_to_flax
 from tests.test_torch_transformer import VOCAB, flax_and_port
 
@@ -380,6 +380,62 @@ def test_cli_train_mode(corpora, tmp_path, capsys):
     assert out["step"] == 1
     assert os.path.exists(tmp_path / "ckpts" / "step_1.pt")
     assert os.path.exists(tmp_path / "config.yaml")
+
+
+def test_cli_trains_config4_maml_at_small_width(corpora, tmp_path, capsys):
+    """configs/config4_maml.yaml (algo maml, bf16 compute and meta-step, 2
+    inner steps) through the CLI, cut to a small width for the CPU: a
+    second-order step with dropout and SpecAugment on."""
+    _, data_dir = corpora
+    config4 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                           "configs", "config4_maml.yaml")
+    rc = cli.main(["--mode", "train", "--device", "cpu", "--config", config4,
+                   "--data-dir", data_dir,
+                   "--workdir", str(tmp_path), "--max-steps", "1",
+                   "-o", "model.d_model=32", "-o", "model.num_heads=2",
+                   "-o", "model.d_ff=64", "-o", "model.num_encoder_layers=1",
+                   "-o", "model.num_decoder_layers=1",
+                   "-o", "meta.tasks_per_batch=2", "-o", "meta.k_support=2",
+                   "-o", "meta.k_query=2", "-o", "train.log_every=1",
+                   "-o", "data.max_frames=200", "-o", "data.max_tokens=16"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["step"] == 1
+    from metaasr_tpu_torch.config import load_config
+
+    saved = load_config(str(tmp_path / "config.yaml"))
+    assert saved.meta.algo == "maml" and saved.meta.inner_steps == 2
+    rec = json.loads(open(tmp_path / "logs" / "scalars.jsonl").readline())
+    assert np.isfinite(rec["meta_loss"]) and rec["grad_norm"] > 0
+
+
+@pytest.mark.parametrize("arch", ["transformer", "vgg_blstm"])
+def test_maml_trainer_step_differs_from_fomaml(corpora, tmp_path, arch):
+    """MetaASRTrainer with algo maml: the step runs at second order (its
+    gradient differs from FOMAML's on the same batch and seed), and a
+    VGG-BLSTM task is switched to the twice-differentiable LSTM loop."""
+    _, data_dir = corpora
+    grads = {}
+    for algo in ("fomaml", "maml"):
+        cfg = _train_cfg(data_dir)
+        cfg.meta.algo, cfg.meta.grad_dtype = algo, "float32"
+        cfg.model.dropout, cfg.frontend.dither = 0.0, 0.0
+        cfg.specaug.enabled = False
+        if arch == "vgg_blstm":
+            cfg.model.arch, cfg.model.blstm_hidden = arch, 16
+            cfg.model.blstm_layers, cfg.model.vgg_channels = 1, (4, 8)
+        trainer, _ = cli.make_trainer(cfg, str(tmp_path / algo), device="cpu")
+        if arch == "vgg_blstm":
+            assert (cfg.model.lstm_impl == "scan") == (algo == "maml")
+        state = trainer.init_state()
+        batch = to_device(trainer.sampler.sample(0), "cpu")
+        new_state, metrics = trainer.step(state, batch)
+        assert np.isfinite(float(metrics["meta_loss"]))
+        grads[algo] = torch.cat([
+            (new_state["params"][k] - state["params"][k]).flatten()
+            for k in state["params"]])
+    assert not torch.allclose(grads["maml"], grads["fomaml"], rtol=1e-3,
+                              atol=1e-9)
 
 
 def test_trainer_defaults_to_cuda_without_fallback(corpora, tmp_path):
