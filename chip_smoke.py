@@ -7,7 +7,8 @@ GPU. Run from the root of a checkout, with no arguments:
 Phases, one JSON line each; any failure exits non-zero:
 
 1. build   — compile every CUDA source of the port with nvcc (sm_90a), in
-             parallel; print ``nvidia-smi`` name and power limit.
+             parallel; print ``nvidia-smi`` name and power limit, and the
+             registers and spills of each LSTM kernel.
 2. kernel  — K1 (fused log-mel fbank) against its plain PyTorch version on
              the card at the serving bucket [16, 64000] with ragged
              lengths (401 samples = 1 frame ... 64000), CMVN none /
@@ -44,16 +45,24 @@ Phases, one JSON line each; any failure exits non-zero:
              accent, the adapted npz hot-swapped into a ServingDecoder that
              serves one utterance; exact launch counts.
 
-8. lstm_kernel — K3 (LSTM recurrence) and K3b (its BPTT and the dU
-             product) against their plain PyTorch versions, through the
-             autograd Function, at [T, B, H] = [99, 16, 320] (config1),
-             [64, 8, 128], an unaligned [37, 5, 96] and a long [400, 4, 320]:
-             forward max |diff| <= 1e-5, dgx / dU l2rel <= 1e-3. CUDA-event
-             medians of K3, K3b and the plain versions at the config1 shape,
-             and as the library yardstick ``torch.nn.LSTM`` (cuDNN, +1 folded
-             into the forget bias; it includes the input projection) forward
-             and forward + backward at [99, 16, 640 -> 320] beside K3 +
-             F.linear for the same layer.
+8. lstm_kernel — K3 (LSTM recurrence) and K3b (its BPTT from the saved
+             gates, and the dU product) against their plain PyTorch versions,
+             through the autograd Function, at [T, B, H] = [99, 16, 320]
+             (config1), [64, 8, 128], an unaligned [37, 5, 96], a long
+             [400, 4, 320], the reference's H [20, 3, 24] (an uneven split),
+             [20, 4, 640] (U's slice partly streamed) and [3, 5, 5280] (the
+             widest H, almost all streamed): forward and saved gates max
+             |diff| <= 1e-5, dgx / dU l2rel <= 1e-3; each shape's cluster
+             size, batch tile, shared memory per CTA and
+             cudaOccupancyMaxActiveClusters. CUDA-event medians at the
+             config1 and long shapes of K3 (with and without the gates), K3b,
+             its recurrence and its dU product apart, the plain versions, µs
+             per dependent step; sweeps of the batch tile and of the dU
+             product's k splits; and as the
+             library yardstick ``torch.nn.LSTM`` (cuDNN, +1 folded into the
+             forget bias; it includes the input projection) forward, forward
+             + backward and the backward alone at [99, 16, 640 -> 320] beside
+             K3 + F.linear for the same layer.
 9. mono_step — the config1-width VGG-BLSTM CTC step (VGG 64/128, 4 x BLSTM
              320, fp32, Adadelta lr 1.0, clip 5, SpecAugment on) through
              ``MonoASRTrainer.step``: batch 16 x 64,000 samples, 32 phone
@@ -169,9 +178,32 @@ def phase_build():
     print(smi, flush=True)
     ptxas = [ln.strip() for out in logs.values() for ln in out.splitlines()
              if "registers" in ln or "bytes smem" in ln]
+    lstm_ptxas = ptxas_report(logs.get("lstm", ""))
     log({"phase": "build", "sources": list(_build.SOURCES),
-         "seconds": round(seconds, 3), "ptxas": ptxas})
-    return smi
+         "seconds": round(seconds, 3), "ptxas": ptxas,
+         "lstm_kernels": lstm_ptxas})
+    return smi, lstm_ptxas
+
+
+def ptxas_report(out: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads}} from nvcc's
+    ``-Xptxas -v`` output."""
+    import re
+
+    report, name = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"entry function '_Z\d+(\w+?)(?:ILi(\d+)EEv)?P", ln)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            report[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            report[name].update(spill_stores=int(m.group(1)),
+                                spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+    return report
 
 
 def make_waves(rng, lens, width):
@@ -308,7 +340,8 @@ def check_results(results, n, tok):
 
 def device_busy(torch, fn):
     """Run ``fn`` under torch.profiler; -> (host wall ms, device busy ms as
-    the union of CUDA kernel spans, kernel count, top kernels by time).
+    the union of CUDA kernel spans, kernel count, top kernels by time,
+    {kernel name: device ms}).
     Device numbers are None when the profiler records no CUDA events.
 
     Only device activity is traced, and the spans are read from the
@@ -335,7 +368,7 @@ def device_busy(torch, fn):
             name = e.name()
             by_name[name] = by_name.get(name, 0.0) + (t - s) / 1e6
     if not spans:
-        return wall, None, 0, []
+        return wall, None, 0, [], {}
     busy, cur_s, cur_e = 0.0, None, None
     for s, t in sorted(spans):
         if cur_e is None or s > cur_e:
@@ -345,7 +378,8 @@ def device_busy(torch, fn):
             cur_e = max(cur_e, t)
     busy += cur_e - cur_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return wall, busy / 1e6, len(spans), [[n[:60], ms] for n, ms in top]
+    return (wall, busy / 1e6, len(spans), [[n[:60], ms] for n, ms in top],
+            by_name)
 
 
 def phase_serving(torch):
@@ -736,21 +770,32 @@ def phase_train_entry(torch):
 # ------------------------------------------------------------ K3 / K3b ----
 
 LSTM_SHAPES = {"config1": (99, 16, 320), "chip_check": (64, 8, 128),
-               "unaligned": (37, 5, 96), "long_t": (400, 4, 320)}
+               "unaligned": (37, 5, 96), "long_t": (400, 4, 320),
+               "reference_h": (20, 3, 24),     # tests/test_m3_pallas.py's H
+               "streamed": (20, 4, 640),       # U's slice exceeds a CTA
+               "widest": (3, 5, 5280)}         # 16 rounds of pairs, streamed
+LSTM_TILES = (4, 8, 16)  # the batch tiles swept at the config1 shape
+LSTM_DU_SPLITS = (1, 2, 4, 8)  # the dU product's k splits, swept there too
 LSTM_FWD_TOL = 1e-5      # max |diff| of h_seq
 LSTM_GRAD_L2REL = 1e-3   # scripts/kernel_check.py's bar for the TPU kernel
 
 
 def lstm_inputs(torch, shape, seed):
-    """gx ~ N(0, 1), u with orthonormal rows (the model's init), and a
-    cotangent for h_seq, all on the card."""
+    """gx ~ N(0, 1), u with orthonormal rows (the model's init; above H =
+    1,024, where the QR would take the host long, N(0, 1 / 4H): rows of
+    norm ~1 as well), and a cotangent for h_seq, all on the card."""
     t_len, bsz, hidden = shape
     rng = np.random.default_rng(seed)
     gx = rng.standard_normal((t_len, bsz, 4 * hidden)).astype(np.float32)
-    q, _ = np.linalg.qr(rng.standard_normal((4 * hidden, hidden)))
+    if hidden <= 1024:
+        q, _ = np.linalg.qr(rng.standard_normal((4 * hidden, hidden)))
+        u = q.T
+    else:
+        u = rng.standard_normal((hidden, 4 * hidden), dtype=np.float32)
+        u *= np.float32(0.5 / np.sqrt(hidden))
     dout = rng.standard_normal((t_len, bsz, hidden)).astype(np.float32)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
-    return to(gx), to(q.T), to(dout)
+    return to(gx), to(u), to(dout)
 
 
 def l2rel(torch, a, b) -> float:
@@ -758,16 +803,17 @@ def l2rel(torch, a, b) -> float:
                  / torch.linalg.norm(b).clamp_min(1e-30))
 
 
-def phase_lstm_kernel(torch, peaks):
+def phase_lstm_kernel(torch, peaks, ptxas):
     import torch.nn.functional as F
 
     from metaasr_tpu_torch.ops import lstm_kernel as lk
 
     peak_flops, peak_bw = peaks
     res = {"phase": "lstm_kernel", "fwd_tol": LSTM_FWD_TOL,
-           "grad_l2rel_tol": LSTM_GRAD_L2REL, "shapes": {}}
+           "grad_l2rel_tol": LSTM_GRAD_L2REL, "ptxas": ptxas, "shapes": {}}
     ok = True
     for i, (name, shape) in enumerate(LSTM_SHAPES.items()):
+        t_len, bsz, hidden = shape
         gx, u, dout = lstm_inputs(torch, shape, seed=20 + i)
         gx_g = gx.clone().requires_grad_(True)
         u_g = u.clone().requires_grad_(True)
@@ -777,46 +823,82 @@ def phase_lstm_kernel(torch, peaks):
         torch.cuda.synchronize()
         counted = (lk.lstm_recurrence.launches - before[0],
                    lk.lstm_recurrence.bwd_launches - before[1])
-        p_h, p_c = lk.plain_lstm_forward(gx, u)
-        p_dgx, p_du = lk.plain_lstm_backward(gx, u, p_h, p_c, dout)
+        h_seq, c_seq, gates = lk.lstm_forward(gx, u)
+        p_h, p_c, p_g = lk.plain_lstm_forward(gx, u)
+        p_dgx, p_du = lk.plain_lstm_backward(p_g, u, p_h, p_c, dout)
         entry = {"shape_tbh": list(shape),
+                 "plan": lk.plan(bsz, hidden, gx.device),
                  "fwd_max_abs_diff": float((h.detach() - p_h).abs().max()),
+                 "gates_max_abs_diff": float((gates - p_g).abs().max()),
+                 "c_max_abs_diff": float((c_seq - p_c).abs().max()),
                  "dgx_l2rel": l2rel(torch, gx_g.grad, p_dgx),
                  "du_l2rel": l2rel(torch, u_g.grad, p_du),
                  "dgx_max_abs_diff": float((gx_g.grad - p_dgx).abs().max()),
                  "du_max_abs_diff": float((u_g.grad - p_du).abs().max()),
                  "launches_counted": list(counted)}
         ok = (ok and entry["fwd_max_abs_diff"] <= LSTM_FWD_TOL
+              and entry["gates_max_abs_diff"] <= LSTM_FWD_TOL
               and entry["dgx_l2rel"] <= LSTM_GRAD_L2REL
               and entry["du_l2rel"] <= LSTM_GRAD_L2REL and counted == (1, 1))
         if name in ("config1", "long_t"):
-            t_len, bsz, hidden = shape
-            h_seq, c_seq = lk.lstm_forward(gx, u)
+            p = entry["plan"]
+            dgx, du = torch.empty_like(gx), torch.empty_like(u)
             entry["fwd_ms"] = cuda_median_ms(
                 torch, lambda: lk.lstm_forward(gx, u))
+            entry["fwd_no_gates_ms"] = cuda_median_ms(
+                torch, lambda: lk.lstm_forward(gx, u, gates=False))
             entry["bwd_ms"] = cuda_median_ms(
-                torch, lambda: lk.lstm_backward(gx, u, h_seq, c_seq, dout))
+                torch, lambda: lk.lstm_backward(gates, u, h_seq, c_seq, dout))
+            entry["bptt_ms"] = cuda_median_ms(torch, lambda: lk._launch_bptt(
+                gates, u, c_seq, dout, dgx, p))
+            entry["du_ms"] = cuda_median_ms(
+                torch, lambda: lk._launch_du(h_seq, dgx, du))
+            entry["du_splits"] = lk.du_splits(t_len, bsz, hidden, gx.device)
             entry["plain_fwd_ms"] = cuda_median_ms(
                 torch, lambda: lk.plain_lstm_forward(gx, u), runs=10, warmup=2)
             entry["plain_bwd_ms"] = cuda_median_ms(
-                torch, lambda: lk.plain_lstm_backward(gx, u, p_h, p_c, dout),
+                torch, lambda: lk.plain_lstm_backward(p_g, u, p_h, p_c, dout),
                 runs=10, warmup=2)
-            # the reference's own operation counts (lstm_pallas.py:155, 207)
-            # and every array once
+            # forward: the reference's operation count (lstm_pallas.py:155)
+            # and every array once, the gates written; backward from the
+            # saved gates: dgates @ U^T and h_prev^T @ dgates, 2 products
+            # of 2*T*B*H*4H (the reference's 6 counts the recompute)
             cell = t_len * bsz * hidden
             for tag, flops, floats in (
                     ("fwd", 2 * cell * 4 * hidden,
-                     cell * 4 + 4 * hidden * hidden + 2 * cell),
-                    ("bwd", 6 * cell * 4 * hidden,
+                     cell * (4 + 2 + 4) + 4 * hidden * hidden),
+                    ("bwd", 4 * cell * 4 * hidden,
                      cell * (4 + 3 + 4) + 2 * 4 * hidden * hidden)):
                 t_ops, t_bytes = flops / peak_flops, 4 * floats / peak_bw
                 entry[f"{tag}_bound_ms"] = 1e3 * max(t_ops, t_bytes)
                 entry[f"{tag}_bound_by"] = ("operations" if t_ops >= t_bytes
                                             else "bytes")
-                entry[f"{tag}_us_per_dependent_step"] = \
-                    1e3 * entry[f"{tag}_ms"] / t_len
+            entry["fwd_us_per_dependent_step"] = 1e3 * entry["fwd_ms"] / t_len
+            entry["bptt_us_per_dependent_step"] = \
+                1e3 * entry["bptt_ms"] / t_len
             entry["dependent_steps"] = t_len
         res["shapes"][name] = entry
+
+    # the batch tile, from measurement: K3 and K3b's recurrence at each
+    t_len, bsz, hidden = LSTM_SHAPES["config1"]
+    gx, u, dout = lstm_inputs(torch, LSTM_SHAPES["config1"], seed=20)
+    h_seq, c_seq, gates, dgx = (torch.empty_like(x) for x in (
+        dout, dout, gx, gx))
+    res["tile_sweep"] = []
+    for tile in LSTM_TILES:
+        p = lk.plan(bsz, hidden, gx.device, tile)
+        res["tile_sweep"].append({
+            "tile": tile, "clusters": -(-bsz // tile), "cluster": p["cluster"],
+            "fwd_ms": cuda_median_ms(torch, lambda: lk._launch_forward(
+                gx, u, h_seq, c_seq, gates, p)),
+            "bptt_ms": cuda_median_ms(torch, lambda: lk._launch_bptt(
+                gates, u, c_seq, dout, dgx, p))})
+    # and the dU product's k splits (a cluster of that many CTAs per tile)
+    du = torch.empty_like(u)
+    res["du_split_sweep"] = [
+        {"splits": n, "du_ms": cuda_median_ms(
+            torch, lambda: lk._launch_du(h_seq, dgx, du, n))}
+        for n in LSTM_DU_SPLITS]
 
     # the library yardstick: one BLSTM direction of config1's layers 2-4,
     # [99, 16, 640 -> 320]; nn.LSTM (cuDNN) includes the input projection
@@ -869,6 +951,11 @@ def phase_lstm_kernel(torch, peaks):
         "nn_lstm_fwd_bwd_ms": cuda_median_ms(torch, lambda: library(True)),
         "kernel_layer_fwd_ms": cuda_median_ms(torch, lambda: ours(False)),
         "kernel_layer_fwd_bwd_ms": cuda_median_ms(torch, lambda: ours(True))}
+    yard = res["library_yardstick"]
+    # the backward alone (K3b + the projection's backward against cuDNN's)
+    yard["nn_lstm_bwd_ms"] = yard["nn_lstm_fwd_bwd_ms"] - yard["nn_lstm_fwd_ms"]
+    yard["kernel_layer_bwd_ms"] = (yard["kernel_layer_fwd_bwd_ms"]
+                                   - yard["kernel_layer_fwd_ms"])
     log(res)
     if not ok:
         raise SystemExit("K3/K3b disagree with their plain versions")
@@ -1000,6 +1087,11 @@ def phase_mono_step(torch):
         peak = torch.cuda.max_memory_allocated()
         prof = device_busy(torch, one_step)
         counts = lstm_counts()
+    lstm_ms = {}  # K3, K3b's recurrence and dU: device ms in the step
+    for name, v in prof[4].items():
+        k = name.split("(")[0].strip().rsplit(" ", 1)[-1]
+        if k.startswith("lstm_"):
+            lstm_ms[k] = lstm_ms.get(k, 0.0) + v
     steps = warmup + timed + 1
     layers = 2 * cfg.model.blstm_layers
     want = {"k1": steps, "k2": steps, "k3": steps * layers,
@@ -1018,7 +1110,8 @@ def phase_mono_step(torch):
            "utts_per_s": bsz / (ms / 1e3), "peak_mem_gb": peak / 1e9,
            "profiled_step": {"wall_ms": prof[0], "device_busy_ms": prof[1],
                              "cuda_kernels": prof[2],
-                             "top_kernels_ms": prof[3]},
+                             "top_kernels_ms": prof[3],
+                             "lstm_kernels_ms": lstm_ms},
            "device_busy_share": None if prof[1] is None else prof[1] / ms,
            "launches": counts, "launches_expected": want, "loss": loss_vals}
     log(out)
@@ -1538,7 +1631,7 @@ def main() -> int:
             time.perf_counter() - t0, 1)
         return out
 
-    smi = timed(phase_build)
+    smi, lstm_ptxas = timed(phase_build)
     part, peaks = card_peaks(kind)
     log({"card": smi, "torch": torch.__version__, "peak_rates_of": part, "fp32_flops": peaks[0],
          "hbm_bytes_per_s": peaks[1]})
@@ -1548,7 +1641,7 @@ def main() -> int:
     k2 = timed(phase_ctc_kernel, torch, peaks)
     meta = timed(phase_meta_step, torch)
     entry = timed(phase_train_entry, torch)
-    k3 = timed(phase_lstm_kernel, torch, peaks)
+    k3 = timed(phase_lstm_kernel, torch, peaks, lstm_ptxas)
     mono = timed(phase_mono_step, torch)
     mono_entry = timed(phase_mono_entry, torch)
     k2b = timed(phase_ctc_hvp_kernel, torch, peaks)
@@ -1588,15 +1681,23 @@ def main() -> int:
         "bound_ms": k3_main[f"{tag}_bound_ms"],
         "bound_by": k3_main[f"{tag}_bound_by"],
         "dependent_steps": k3_main["dependent_steps"],
+        "cluster": k3_main["plan"]["cluster"],
+        "tile": k3_main["plan"]["tile"],
         "library_ms": yard[lib_key], "library_is": lib_what, **extra}
         for name, line, key, err, tag, lib_key, lib_what, extra in (
             ("lstm_forward", 48, "k3", "fwd_max_abs_diff", "fwd",
              "nn_lstm_fwd_ms",
-             "nn.LSTM forward, input projection included", {}),
+             "nn.LSTM forward, input projection included",
+             {"us_per_dependent_step": k3_main["fwd_us_per_dependent_step"],
+              "fwd_no_gates_ms": k3_main["fwd_no_gates_ms"]}),
             ("lstm_backward", 71, "k3b", "dgx_max_abs_diff", "bwd",
-             "nn_lstm_fwd_bwd_ms",
-             "nn.LSTM forward + backward, input projection included",
-             {"dgx_l2rel": max(e["dgx_l2rel"] for e in k3_shapes.values()),
+             "nn_lstm_bwd_ms",
+             "nn.LSTM backward alone (forward + backward less forward), "
+             "the input projection's backward included",
+             {"us_per_dependent_step": k3_main["bptt_us_per_dependent_step"],
+              "bptt_ms": k3_main["bptt_ms"], "du_ms": k3_main["du_ms"],
+              "du_splits": k3_main["du_splits"],
+              "dgx_l2rel": max(e["dgx_l2rel"] for e in k3_shapes.values()),
               "du_l2rel": max(e["du_l2rel"] for e in k3_shapes.values())}))]
     log({"kernels": [{
         "name": "fbank_log_mel", "route": "cuda",

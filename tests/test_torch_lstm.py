@@ -74,16 +74,18 @@ def test_explicit_bptt_matches_autograd_of_the_loop(shape):
     w = np.random.default_rng(2).standard_normal(shape).astype(np.float32)
     h_loop, dgx_loop, du_loop = _port_grads(lstm_scan, gx, u, w)
     gx_t, u_t = torch.from_numpy(gx), torch.from_numpy(u)
-    h_seq, c_seq = plain_lstm_forward(gx_t, u_t)
-    dgx, du = plain_lstm_backward(gx_t, u_t, h_seq, c_seq,
+    h_seq, c_seq, gates = plain_lstm_forward(gx_t, u_t)
+    dgx, du = plain_lstm_backward(gates, u_t, h_seq, c_seq,
                                   torch.from_numpy(w))
     np.testing.assert_array_equal(h_seq.numpy(), h_loop)
     np.testing.assert_allclose(dgx.numpy(), dgx_loop, rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(du.numpy(), du_loop, rtol=1e-4, atol=1e-5)
     # the wrappers take the plain versions for CPU tensors
-    h2, c2 = lstm_forward(gx_t, u_t)
+    h2, c2, g2 = lstm_forward(gx_t, u_t)
     assert torch.equal(h2, h_seq) and torch.equal(c2, c_seq)
-    dgx2, du2 = lstm_backward(gx_t, u_t, h_seq, c_seq, torch.from_numpy(w))
+    assert torch.equal(g2, gates)
+    assert lstm_forward(gx_t, u_t, gates=False)[2] is None
+    dgx2, du2 = lstm_backward(gates, u_t, h_seq, c_seq, torch.from_numpy(w))
     assert torch.equal(dgx2, dgx) and torch.equal(du2, du)
 
 
@@ -110,15 +112,72 @@ def test_recurrence_checks_inputs():
         lstm_forward(gx, u.T)
     with pytest.raises(ValueError, match="float32"):
         lstm_forward(gx.double(), u.double())
-    h, c = lstm_forward(gx, u)
+    h, c, g = lstm_forward(gx, u)
     with pytest.raises(ValueError, match="dout must be"):
-        lstm_backward(gx, u, h, c, h[:2])
+        lstm_backward(g, u, h, c, h[:2])
     with pytest.raises(ValueError, match="one device"):
         lstm_forward(gx, u.to("meta"))
     # inference mode runs the forward alone
     with torch.inference_mode():
         assert torch.equal(lstm_recurrence(gx, u), h)
     assert lstm_kernel.lstm_recurrence.launches == 0
+
+
+def test_plain_gates_are_the_activations():
+    """The saved gates are sigmoid/tanh of gx[t] + h[t-1] @ u, exactly."""
+    gx, u = (torch.from_numpy(a) for a in _inputs((9, 3, 8), seed=6))
+    h_seq, c_seq, gates = plain_lstm_forward(gx, u)
+    assert gates.shape == gx.shape
+    h_prev = torch.cat([torch.zeros_like(h_seq[:1]), h_seq[:-1]])
+    for t in range(gx.shape[0]):
+        g = gx[t] + h_prev[t] @ u
+        want = torch.cat([torch.sigmoid(g[:, :8]), torch.sigmoid(g[:, 8:16] + 1.0),
+                          torch.tanh(g[:, 16:24]), torch.sigmoid(g[:, 24:])], 1)
+        assert torch.equal(gates[t], want)
+        i, f, gg, o = gates[t].split(8, dim=1)
+        c = f * (c_seq[t - 1] if t else torch.zeros_like(c_seq[0])) + i * gg
+        assert torch.equal(c_seq[t], c)
+        assert torch.equal(h_seq[t], o * torch.tanh(c))
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_gates_saved_only_when_a_backward_can_follow(grad, monkeypatch):
+    """Under no_grad (evaluation, serving) the forward writes no gates and
+    the Function saves nothing; with grad it saves (gates, u, h_seq, c_seq)."""
+    gx, u = (torch.from_numpy(a) for a in _inputs((5, 2, 8), seed=7))
+    gx.requires_grad_(True)
+    asked, saved = [], []
+    real = lstm_kernel.lstm_forward
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        asked.append((kwargs.get("gates"), out[2] is not None))
+        return out
+
+    monkeypatch.setattr(lstm_kernel, "lstm_forward", spy)
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda x: saved.append(tuple(x.shape)) or x, lambda x: x):
+        with torch.set_grad_enabled(grad):
+            h = lstm_recurrence(gx, u)
+    assert asked == [(grad, grad)]
+    assert h.requires_grad == grad
+    if grad:
+        assert saved == [(5, 2, 32), (8, 32), (5, 2, 8), (5, 2, 8)]
+    else:
+        assert saved == []
+
+
+def test_check_rejects_misshaped_gates():
+    gx, u = (torch.from_numpy(a) for a in _inputs((4, 2, 8)))
+    h, c, g = lstm_forward(gx, u)
+    with pytest.raises(ValueError, match=r"gates must be \[T, B, 4H\]"):
+        lstm_backward(g[:, :, :30], u, h, c, h)
+    with pytest.raises(ValueError, match=r"gates must be \[T, B, 4H\]"):
+        lstm_backward(g[0], u, h, c, h)
+    with pytest.raises(ValueError, match="u must be"):
+        lstm_backward(g[:, :, :16], u, h, c, h)
+    with pytest.raises(ValueError, match="h_seq must be"):
+        lstm_backward(g[:3], u, h, c, h)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
