@@ -27,12 +27,17 @@ Phases, one JSON line each; any failure exits non-zero:
              gives identical texts and scores within 1e-4.
 5. ctc_kernel — K2 (CTC alpha/beta) against its plain PyTorch version at
              [B, T, U, V] = [16, 99, 32, 30] (tasks fused), [4, 99, 32, 30]
-             (per task), [3, 50, 7, 12] and [8, 1000, 20, 30], with ragged
-             T, an empty label and an infeasible row: loss within
+             (per task), [3, 50, 7, 12], [8, 1000, 20, 30], [4, 99, 60, 30]
+             (S = 121) and [2, 1100, 511, 30] (S = 1,023, the widest), with
+             ragged T, an empty label and an infeasible row: loss within
              atol = rtol = 1e-5, gradient l2rel <= 1.9e-3, the infeasible
-             row's loss and gradient 0 through the autograd Function;
-             CUDA-event medians of K2, its plain version and
-             F.ctc_loss forward + backward at the first two shapes.
+             row's loss and gradient 0 through the autograd Function; each
+             shape's launch plan (layout, states per thread, warps, shared
+             memory). At the first two shapes: CUDA-event medians of K2
+             (wrapper included), its plain version and F.ctc_loss forward +
+             backward, K2's device time per launch from the profiler's
+             kernel spans over 30 launches, the wrapper's host time (their
+             difference) and µs per dependent step (T of them).
 6. meta_step — the config3-width FOMAML meta-step (maml_grads + Adam/Noam,
              clip 5) on bench.py's workload, 4 tasks x (4 + 4) and
              4 x (16 + 16) utterances of 64,000 samples, 32 tokens, 3 inner
@@ -78,7 +83,7 @@ Phases, one JSON line each; any failure exits non-zero:
              exact launch counts (serving: 8 K3 per request, 0 K3b).
 
 11. ctc_hvp_kernel — K2b (the CTC Hessian-vector product) against its plain
-             PyTorch version at K2's four shapes, a seeded direction v: hv
+             PyTorch version at K2's six shapes, a seeded direction v: hv
              l2rel <= 1e-3 and max |diff| <= 1e-5 (1 + max |hv|); against
              the plain versions run in float64, hv l2rel <= 1e-3 and nll_dot
              within 1e-4 (1 + |<grad, v>|), both bars times T / 100 at
@@ -90,7 +95,8 @@ Phases, one JSON line each; any failure exits non-zero:
              CUDA-event medians of K2b, its plain version and, as the only
              yardstick there is (``F.ctc_loss`` is not twice
              differentiable), autograd-of-autograd through the port's scan
-             recursion on the card.
+             recursion on the card; device and host time, chain length and
+             plan as in phase 5.
 12. maml_step — the config4-width second-order MAML meta-step (maml_grads
              with first_order false + Adam/Noam, clip 5) on bench.py's
              workload at config4's own shape, 4 x (16 + 16) utterances of
@@ -110,11 +116,25 @@ Phases, one JSON line each; any failure exits non-zero:
 
 Then a ``{"kernels": [...]}`` line (time, bound, launches on the main
 paths per kernel) and the last line ``{"ok": true, "device": {...}}``.
-TF32 is off throughout (the reference pins fp32 HIGHEST in the front-end).
+
+Precision: the phases that time entry points run under the port's own
+policy (``metaasr_tpu_torch/device.py``, printed on its own line); TF32 is
+off only where the card is held against a plain version or the CPU
+(phases 2, 4, 5, 8, 11 and the small-model parity checks of phases 9 and
+12), through ``strict_fp32``.
+
+Two more modes, each needing one card:
+
+    python3 chip_smoke.py --precision-ab    # phases 9, 10 under the policy,
+                                            # then under strict fp32
+    python3 chip_smoke.py --ctc-ab PARENT   # K2 / K2b event and device times
+                                            # of PARENT's checkout and this
+                                            # one: parent, this, this, parent
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -163,6 +183,55 @@ def cuda_median_ms(torch, fn, runs: int = 30, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms_per_call(torch, fn, runs: int = 30) -> float:
+    """Device time per call of ``fn``: the union of the CUDA kernel spans
+    the profiler records over ``runs`` calls, over ``runs``."""
+    fn()
+    torch.cuda.synchronize()
+
+    def many():
+        for _ in range(runs):
+            fn()
+
+    busy = device_busy(torch, many)[1]
+    if busy is None:
+        raise SystemExit("the profiler recorded no CUDA kernel")
+    return busy / runs
+
+
+@contextlib.contextmanager
+def strict_fp32():
+    """TF32 off for cuBLAS and cuDNN inside, also for any device an entry
+    point resolves there; the port's policy and the flags as they were
+    after."""
+    import torch
+
+    from metaasr_tpu_torch import device
+
+    before = (device.ALLOW_TF32, torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    device.ALLOW_TF32 = False
+    device.apply_precision_policy()
+    try:
+        yield
+    finally:
+        device.ALLOW_TF32 = before[0]
+        torch.backends.cuda.matmul.allow_tf32 = before[1]
+        torch.backends.cudnn.allow_tf32 = before[2]
+
+
+def precision_line(torch) -> dict:
+    from metaasr_tpu_torch import device
+
+    return {"precision": {
+        "policy": ("tf32" if device.ALLOW_TF32 else "strict fp32")
+        + " (metaasr_tpu_torch/device.py)",
+        "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+        "strict_fp32_in": "phases 2, 4, 5, 8, 11; small-model parity of "
+                          "phases 9 and 12"}}
 
 
 def phase_build():
@@ -479,7 +548,9 @@ def phase_parity(torch):
 # ---------------------------------------------------------------- K2 ----
 
 CTC_SHAPES = {"fused": (16, 99, 32, 30), "per_task": (4, 99, 32, 30),
-              "odd": (3, 50, 7, 12), "long_t": (8, 1000, 20, 30)}
+              "odd": (3, 50, 7, 12), "long_t": (8, 1000, 20, 30),
+              "wide_s": (4, 99, 60, 30),     # S = 121: K2b's histories spill
+              "max_s": (2, 1100, 511, 30)}   # S = 1,023: four warps a pass
 CTC_LOSS_TOL = 1e-5      # atol = rtol, tests/test_m3_pallas.py:45
 CTC_GRAD_L2REL = 1.9e-3  # docs/KERNEL_CHECK_TPU.md, T=1000 on the TPU
 
@@ -490,7 +561,8 @@ def ctc_inputs(torch, shape, seed):
     bsz, t_len, u_len, vocab = shape
     rng = np.random.default_rng(seed)
     logits = rng.standard_normal((bsz, t_len, vocab)).astype(np.float32)
-    t_lens = rng.integers(max(2 * u_len + 1, t_len // 2), t_len + 1, bsz)
+    t_lens = rng.integers(min(max(2 * u_len + 1, t_len // 2), t_len),
+                          t_len + 1, bsz)
     t_lens[0] = t_len
     labels = rng.integers(1, vocab, (bsz, u_len))
     u_lens = rng.integers(1, u_len + 1, bsz)
@@ -500,6 +572,17 @@ def ctc_inputs(torch, shape, seed):
     lp = torch.log_softmax(torch.from_numpy(logits).to(DEVICE), -1)
     as_i32 = lambda a: torch.from_numpy(a.astype(np.int32)).to(DEVICE)  # noqa: E731
     return lp, as_i32(t_lens), as_i32(labels), as_i32(u_lens)
+
+
+def chain_times(torch, event_ms, t_lens, fn) -> dict:
+    """Device ms per launch (profiler spans over 30 launches), the wrapper's
+    host ms (the CUDA-event time less the device time), the dependent steps
+    of the longest row and device µs per step."""
+    device_ms = device_ms_per_call(torch, fn)
+    steps = int(t_lens.max())
+    return {"device_ms": device_ms, "host_ms": event_ms - device_ms,
+            "dependent_steps": steps,
+            "us_per_dependent_step": 1e3 * device_ms / steps}
 
 
 def phase_ctc_kernel(torch, peaks):
@@ -538,7 +621,10 @@ def phase_ctc_kernel(torch, peaks):
         entry = {"shape_btuv": list(shape), "loss_max_abs_diff": loss_abs,
                  "loss_ok": loss_ok, "grad_l2rel": l2rel,
                  "grad_max_abs_diff": float((grad - p_grad).abs().max()),
-                 "infeasible_row_zero": infeasible_zero, "finite": finite}
+                 "bit_equal": bool(torch.equal(nll, p_nll)
+                                   and torch.equal(grad, p_grad)),
+                 "infeasible_row_zero": infeasible_zero, "finite": finite,
+                 "plan": ctc_kernel.launch_plan(logp_z)}
         ok = ok and loss_ok and l2rel <= CTC_GRAD_L2REL and infeasible_zero \
             and finite
         if name in ("per_task", "fused"):
@@ -564,8 +650,8 @@ def phase_ctc_kernel(torch, peaks):
             entry.update(
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                dependent_steps=2 * t_len,
-                us_per_dependent_step=1e3 * entry["ms"] / (2 * t_len))
+                **chain_times(torch, entry["ms"], t_lens, lambda: (
+                    ctc_kernel.ctc_alpha_beta(logp_z, skip, t_lens, end))))
         res["shapes"][name] = entry
     log(res)
     if not ok:
@@ -1025,12 +1111,13 @@ def small_model_parity(torch):
              "token_lens": np.array([6, 4, 2, 5], np.int32)}
     out = {}
     for dev in ("cpu", DEVICE):
-        task = ASRTask(cfg, device=dev)
-        params = {k: v.requires_grad_(True)
-                  for k, v in task.init_params(3).items()}
-        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        loss, _ = task.loss_fn(params, tb)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with strict_fp32():
+            task = ASRTask(cfg, device=dev)
+            params = {k: v.requires_grad_(True)
+                      for k, v in task.init_params(3).items()}
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            loss, _ = task.loss_fn(params, tb)
+            grads = torch.autograd.grad(loss, list(params.values()))
         out[dev] = (float(loss.detach()),
                     {k: g.cpu() for k, g in zip(params, grads)})
     (want, want_g), (got, got_g) = out["cpu"], out[DEVICE]
@@ -1319,7 +1406,10 @@ def phase_ctc_hvp_kernel(torch, peaks):
                  "nll_dot_max_abs_diff_to_plain": plain_dot_err,
                  "infeasible_row_zero": infeasible_zero, "finite": finite,
                  "functions_cuda_vs_cpu_l2rel": fn_l2rel,
-                 "functions_launches_k2_k2b": list(counted)}
+                 "functions_launches_k2_k2b": list(counted),
+                 "bit_equal": bool(torch.equal(hv, p_hv)
+                                   and torch.equal(nll_dot, p_dot)),
+                 "plan": ctc_kernel.launch_plan(logp_z, tangent=True)}
         # against float64 the bars widen with T: fp32 rounds alpha and
         # beta, sums of T log-probs, to ~2^-24 of their size, and exp()
         # turns that absolute error into a relative one (K2's gradient has
@@ -1350,17 +1440,14 @@ def phase_ctc_hvp_kernel(torch, peaks):
             elems = bsz * t_len * s_len
             ops = HVP_OPS_PER_ELEMENT * elems
             # what the function must move: logp_z and v read, hv written
-            # (and skip, lens, end, nll_dot). The alpha-dot history that
-            # this design also writes and reads is its own traffic, not the
-            # function's: it is reported beside the bound, not in it.
+            # (and skip, lens, end, nll_dot)
             nbytes = 4 * (3 * elems + bsz * s_len + 3 * bsz)
             t_ops, t_bytes = ops / peak_flops, nbytes / peak_bw
             entry.update(
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                design_traffic_ms=1e3 * (nbytes + 8 * elems) / peak_bw,
-                dependent_steps=2 * t_len,
-                us_per_dependent_step=1e3 * entry["ms"] / (2 * t_len))
+                **chain_times(torch, entry["ms"], t_lens, lambda: (
+                    ctc_kernel.ctc_hvp(logp_z, skip, t_lens, end, v))))
         res["shapes"][name] = entry
     log(res)
     if not ok:
@@ -1413,11 +1500,12 @@ def small_maml_parity(torch):
     algo = MetaAlgoConfig(inner_lr=0.05, inner_steps=2, first_order=False)
     out = {}
     for dev in ("cpu", DEVICE):
-        task = ASRTask(cfg, tok.sos_eos_id, device=dev)
-        batch = {s: {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
-                 for s, p in mb.items()}
-        grads, metrics = maml_grads(task.loss_fn, algo, task.preprocess)(
-            task.init_params(4), batch, 0)
+        with strict_fp32():
+            task = ASRTask(cfg, tok.sos_eos_id, device=dev)
+            batch = {s: {k: torch.from_numpy(v).to(dev)
+                         for k, v in p.items()} for s, p in mb.items()}
+            grads, metrics = maml_grads(task.loss_fn, algo, task.preprocess)(
+                task.init_params(4), batch, 0)
         out[dev] = (float(metrics["meta_loss"]),
                     {k: g.cpu() for k, g in grads.items()})
     (want, want_g), (got, got_g) = out["cpu"], out[DEVICE]
@@ -1607,6 +1695,96 @@ def phase_maml_entry(torch):
     return out
 
 
+def last_line(torch, kind) -> None:
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def precision_ab(torch, kind) -> int:
+    """--precision-ab: phases 9 and 10 under the port's precision policy,
+    then both again under strict fp32; one summary line."""
+    runs = {}
+    for tag in ("policy", "strict_fp32"):
+        ctx = strict_fp32() if tag == "strict_fp32" else contextlib.nullcontext()
+        with ctx:
+            log({"precision_ab": tag, **precision_line(torch)})
+            step, entry = phase_mono_step(torch), phase_mono_entry(torch)
+        runs[tag] = {
+            "ms_per_step": step["ms_per_step"],
+            "ms_per_step_all": step["ms_per_step_all"],
+            "peak_mem_gb": step["peak_mem_gb"],
+            "device_busy_ms": step["profiled_step"]["device_busy_ms"],
+            "top_kernels_ms": step["profiled_step"]["top_kernels_ms"],
+            "dev_wer": [d["wer"] for d in entry["dev"]],
+            "dev_cer": [d["cer"] for d in entry["dev"]]}
+    log({"precision_ab_summary": runs})
+    last_line(torch, kind)
+    return 0
+
+
+CTC_AB_SHAPES = ("per_task", "fused", "long_t")
+
+
+def ctc_times(root: str) -> None:
+    """One process's K2 and K2b times with ``root``'s metaasr_tpu_torch:
+    CUDA-event medians of the wrappers and device ms per launch at
+    CTC_AB_SHAPES (the inputs of phases 5 and 11); one JSON line."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    from metaasr_tpu_torch.ops import _build
+    from metaasr_tpu_torch.ops import ctc as ctc_ops
+    from metaasr_tpu_torch.ops import ctc_kernel
+
+    if not ctc_kernel.__file__.startswith(os.path.abspath(root)):
+        raise SystemExit(f"imported {ctc_kernel.__file__}, not {root}'s")
+    _build.build_all(("ctc",))
+    out = {"root": root, "shapes": {}}
+    for name in CTC_AB_SHAPES:
+        i = list(CTC_SHAPES).index(name)
+        lp, t_lens, labels, u_lens = ctc_inputs(torch, CTC_SHAPES[name],
+                                                seed=10 + i)
+        z = ctc_ops.extend_labels(labels)
+        logp_z = ctc_ops.gather_emissions(lp, z).contiguous()
+        skip = ctc_ops.skip_bias(z).contiguous()
+        end = (2 * u_lens).contiguous()
+        v = ctc_ops.gather_emissions(torch.from_numpy(
+            np.random.default_rng(50 + i).standard_normal(
+                tuple(lp.shape)).astype(np.float32)).to(DEVICE), z).contiguous()
+        row = {}
+        for key, fn in (
+                ("k2", lambda: ctc_kernel.ctc_alpha_beta(logp_z, skip, t_lens,
+                                                         end)),
+                ("k2b", lambda: ctc_kernel.ctc_hvp(logp_z, skip, t_lens, end,
+                                                   v))):
+            row[f"{key}_ms"] = cuda_median_ms(torch, fn)
+            row[f"{key}_device_ms"] = device_ms_per_call(torch, fn)
+        out["shapes"][name] = row
+    log(out)
+
+
+def ctc_ab(parent: str) -> int:
+    """--ctc-ab PARENT: ctc_times of PARENT's checkout and of this one, each
+    in its own process, in the order parent, this, this, parent; then the
+    device-time ratios, this over parent, of the means."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for root in (parent, here, here, parent):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--ctc-times", root],
+            capture_output=True, text=True, timeout=600, check=True)
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    def mean(rs, name, key):
+        return statistics.mean(r["shapes"][name][key] for r in rs)
+
+    log({"ctc_ab_device_ratio_this_over_parent": {
+        f"{name}_{key}": mean(runs[1:3], name, key) / mean(runs[::3], name, key)
+        for name in CTC_AB_SHAPES for key in ("k2_device_ms", "k2b_device_ms")}})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1619,9 +1797,16 @@ def main() -> int:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from metaasr_tpu_torch.device import resolve_device
+
+    resolve_device(DEVICE)  # the entry points' precision policy
     kind = torch.cuda.get_device_name(0)
+    args = sys.argv[1:]
+    if args[:1] == ["--ctc-ab"] and len(args) == 2:
+        return ctc_ab(args[1])
+    if args and args != ["--precision-ab"]:
+        print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
+        return 2
     seconds = {}
 
     def timed(phase, *args):
@@ -1635,16 +1820,23 @@ def main() -> int:
     part, peaks = card_peaks(kind)
     log({"card": smi, "torch": torch.__version__, "peak_rates_of": part, "fp32_flops": peaks[0],
          "hbm_bytes_per_s": peaks[1]})
-    k1 = timed(phase_kernel, torch, peaks)
+    log(precision_line(torch))
+    if args == ["--precision-ab"]:
+        return precision_ab(torch, kind)
+    with strict_fp32():
+        k1 = timed(phase_kernel, torch, peaks)
     serving = timed(phase_serving, torch)
-    timed(phase_parity, torch)
-    k2 = timed(phase_ctc_kernel, torch, peaks)
+    with strict_fp32():
+        timed(phase_parity, torch)
+        k2 = timed(phase_ctc_kernel, torch, peaks)
     meta = timed(phase_meta_step, torch)
     entry = timed(phase_train_entry, torch)
-    k3 = timed(phase_lstm_kernel, torch, peaks, lstm_ptxas)
+    with strict_fp32():
+        k3 = timed(phase_lstm_kernel, torch, peaks, lstm_ptxas)
     mono = timed(phase_mono_step, torch)
     mono_entry = timed(phase_mono_entry, torch)
-    k2b = timed(phase_ctc_hvp_kernel, torch, peaks)
+    with strict_fp32():
+        k2b = timed(phase_ctc_hvp_kernel, torch, peaks)
     maml = timed(phase_maml_step, torch)
     maml_entry = timed(phase_maml_entry, torch)
     log({"phase_seconds": seconds})
@@ -1715,6 +1907,9 @@ def main() -> int:
                            for e in k2["shapes"].values()),
         "grad_l2rel": max(e["grad_l2rel"] for e in k2["shapes"].values()),
         "shape_btuv": k2_task["shape_btuv"], "ms": k2_task["ms"],
+        "device_ms": k2_task["device_ms"], "host_ms": k2_task["host_ms"],
+        "layout": k2_task["plan"]["layout"], "plan": k2_task["plan"],
+        "dependent_steps": k2_task["dependent_steps"],
         "plain_ms": k2_task["plain_ms"], "bound_ms": k2_task["bound_ms"],
         "bound_by": k2_task["bound_by"],
         "library_ms": k2_task["library_ms"]}, {
@@ -1727,6 +1922,8 @@ def main() -> int:
                            for e in k2b_shapes.values()),
         "hv_l2rel": max(e["hv_l2rel"] for e in k2b_shapes.values()),
         "shape_btuv": k2b_task["shape_btuv"], "ms": k2b_task["ms"],
+        "device_ms": k2b_task["device_ms"], "host_ms": k2b_task["host_ms"],
+        "layout": k2b_task["plan"]["layout"], "plan": k2b_task["plan"],
         "plain_ms": k2b_task["plain_ms"], "bound_ms": k2b_task["bound_ms"],
         "bound_by": k2b_task["bound_by"],
         "dependent_steps": k2b_task["dependent_steps"],
@@ -1737,11 +1934,12 @@ def main() -> int:
                       "of autograd through the scan recursion on the card",
         "scan_double_backward_ms": k2b_task["scan_double_backward_ms"]},
         *lstm_rows]})
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}), flush=True)
+    last_line(torch, kind)
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ctc-times"] and len(sys.argv) == 3:
+        ctc_times(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -140,7 +140,8 @@ def main(argv=None):
     p = argparse.ArgumentParser("metaasr_tpu_torch")
     p.add_argument("--mode", choices=["train", "serve"], default="serve")
     p.add_argument("--config", type=str, default=None,
-                   help="the run's YAML config (defaults: Config())")
+                   help="the run's YAML config (train: <workdir>/config.yaml "
+                   "when it exists, else Config())")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "PyTorch path)")
@@ -190,6 +191,12 @@ def main(argv=None):
 
 
 def _train(args, overrides: dict) -> int:
+    # a resumed run defaults to its own recorded config, as the reference
+    # does: Config() defaults saved over <workdir>/config.yaml would resume
+    # the checkpoint under another model
+    recorded = os.path.join(args.workdir, "config.yaml")
+    if args.config is None and os.path.exists(recorded):
+        args.config = recorded
     if args.algo:
         overrides["meta.algo"] = args.algo
     if args.seed is not None:
@@ -197,16 +204,15 @@ def _train(args, overrides: dict) -> int:
         overrides["data.seed"] = args.seed
     if args.data_dir:
         overrides["data.data_dir"] = args.data_dir
-    if args.max_steps:
-        overrides["train.max_steps"] = args.max_steps
     cfg = load_config(args.config, overrides)
     os.makedirs(args.workdir, exist_ok=True)
     save_config(cfg, os.path.join(args.workdir, "config.yaml"))
     trainer, _ = make_trainer(cfg, args.workdir, device=args.device)
+    # --max-steps bounds this invocation; the recorded config keeps its own
     if cfg.meta.algo in ("no", "multi"):
-        state = trainer.train()
+        state = trainer.train(max_steps=args.max_steps)
     else:
-        state = trainer.meta_train()
+        state = trainer.meta_train(max_steps=args.max_steps)
     print(json.dumps({"workdir": args.workdir, "step": state["step"]}))
     return 0
 

@@ -1,88 +1,56 @@
-// K2 and K2b: the CTC alpha/beta recursion with the posterior gradient, and
-// its Hessian-vector product, one kernel each.
+// K2 and K2b: the CTC alpha/beta recursion with its posterior gradient, and
+// its Hessian-vector product along a direction v; one kernel template,
+// ctc_kernel<kTangent, K, kStreamed>, for both.
 //
-// K2, ctc_alpha_beta_kernel, replaces the Pallas kernel
+// K2 (kTangent = false) replaces the Pallas kernel
 // metaasr_tpu/ops/ctc_pallas.py:66 _ctc_kernel (pallas_call at :276 in
-// _ctc_run). Same function, laid out for the GPU:
+// _ctc_run). K2b (kTangent = true) replaces the second-order wiring of the
+// same file, :179 _ctc_pair, :191 _ctc_pair_jvp and :224 _ctc_pallas_jvp,
+// whose tangent is jvp(grad(_scan_nll_gathered)) through a lax.scan (:131).
 //
-//   in : logp_z [B, T, S] f32 (label-gathered log-probs, S = 2U+1, no lane
-//        padding), skip_bias [B, S] f32 (0 or LOG_EPS), lens [B] i32 (valid
-//        frames), end [B] i32 (= 2 * label length)
-//   out: nll [B] f32, grad [B, T, S] f32 = d nll / d logp_z
-//        = -exp(alpha + beta + nll) for t < lens, 0 for t >= lens
+//   in : logp_z [B, T, S] f32 (label-gathered log-probs, S = 2U+1), skip
+//        [B, S] f32 (0 or LOG_EPS), lens [B] i32, end [B] i32 (= 2 * label
+//        length); K2b also v [B, T, S] f32
+//   K2 : nll [B]; grad [B, T, S] = -exp(alpha + beta + nll), 0 for t >= lens
+//   K2b: hv [B, T, S] = grad * ((adot + bdot) + nll_dot) = (d^2 nll /
+//        d logp_z^2) v, 0 for t >= lens; nll_dot [B] = <grad, v>
 //
-// Design. One block per utterance, one thread per lane s (block size S
-// rounded up to a warp). The alpha row lives in registers and a
-// double-buffered shared row; one __syncthreads() per time step publishes
-// it to the neighbouring lanes (s-1, s-2). The alpha history is written
-// into the grad output buffer itself; the beta pass then runs backward over
-// it, reading alpha[t, s] and overwriting the same element with the
-// gradient, so no scratch buffer exists (the TPU kernel keeps a VMEM
-// scratch of [T, BB, S_pad]). beta[t] + logp[t] is published through a
-// second shared row, again one barrier per step. Any T is taken: the only
-// per-utterance state on chip is two rows of S floats.
+// adot[t] = v[t] + the mix of adot[t-1] weighted by the softmax of alpha's
+// lse3 terms; bdot likewise over beta's, with v[t+1], 0 at each row's own
+// lens - 1. A state below LOG_EPS / 2 is unreachable: tangent 0. A row whose
+// labels do not fit its frames (nll > -LOG_EPS / 2) gives hv = 0 and
+// nll_dot = 0. The arithmetic is the plain PyTorch versions'
+// (ops/ctc_kernel.py) element by element and in the same order, so both
+// kernels are bit-equal to them: lse3 clamps its max at LOG_EPS and sums
+// (e0 + e1) + e2; the tangents' products and sums are __fmul_rn / __fadd_rn,
+// their quotient correctly rounded (div_rn); IEEE expf and logf.
 //
-// Arithmetic follows the reference exactly: lse3 clamps its max at LOG_EPS
-// before subtracting, the sums run (a + b) + c, alpha freezes for
-// t >= lens, beta restarts at each row's own lens - 1, and the NLL is read
-// from lanes end and end - 1. IEEE expf/logf (no fast math), no FMAs on the
-// recursion (it has no products).
+// Bound. Inputs read and outputs written once take 0.06 us (K2) and 0.4 us
+// (K2b) at [16, 99, 65] on an H100; the operations less. What bounds both is
+// the chain of T dependent steps: one lse3 (3 expf, 1 logf: some 40
+// dependent instructions of IEEE code) plus two shuffles on the neighbours'
+// values of the step before, one CTA per utterance, B of 132 SMs.
 //
-// Bound. Per element the reference's cost estimate counts 10 flops and 6
-// transcendentals, and the bytes are logp_z read and grad written (twice
-// each in the TPU estimate, once each as a lower bound). At the meta-step
-// shapes ([4..16, 99, 65]) both give well under a microsecond on an H100.
-// What bounds the kernel is the dependency chain: 2*T sequential steps, each
-// a barrier, a shared-memory round trip and an expf/logf chain, with only B
-// blocks (4..16) busy on 132 SMs. Later work could keep the alpha history in
-// shared memory when it fits, map short S to one warp (no block barrier),
-// fuse the label gather, or pack several utterances into one block.
-//
-// K2b, ctc_hvp_kernel, replaces the second-order wiring of the same file,
-// metaasr_tpu/ops/ctc_pallas.py:191 _ctc_pair_jvp, whose tangent is
-// jvp(grad(_scan_nll_gathered)) through a lax.scan (:131) that XLA compiles
-// into one program. Here it is the forward-mode tangent of K2's own
-// recursion along a direction v, in one launch:
-//
-//   in : K2's four inputs and v [B, T, S] f32
-//   out: hv [B, T, S] f32 = (d^2 nll / d logp_z^2) v, nll_dot [B] = <grad, v>
-//   scratch: adot [B, T, S] f32, allocated by the caller
-//
-//   adot[0, s]  = v[0, s] on the lanes alpha[0] emits (s = 0; s = 1 if
-//                 end > 0), else 0
-//   adot[t, s]  = v[t, s] + sum_k w_k adot[t-1, s-k],  w = softmax of K2's
-//                 three terms (alpha[s], alpha[s-1], alpha[s-2] + skip[s]);
-//                 frozen with alpha for t >= lens
-//   nll_dot     = -sum softmax(alpha[T-1, {end, end-1}]) adot[T-1, .]
-//   bdot[t-1,s] = sum_k w'_k (bdot[t, s+k] + v[t, s+k]) over K2's beta step,
-//                 0 at each row's own lens - 1
-//   hv[t, s]    = grad[t, s] * ((adot[t, s] + bdot[t, s]) + nll_dot),
-//                 0 for t >= lens
-//
-// A state whose alpha (or beta) is below LOG_EPS / 2 is unreachable: its
-// tangent is 0 (the reference clamps alpha at LOG_EPS with a maximum, which
-// routes the tangent to the constant), and its posterior is 0 anyway. The
-// guard is per lane, so no NaN is ever made and none is swept away. A row
-// whose labels do not fit its frames (nll > -LOG_EPS / 2) gives hv = 0 and
-// nll_dot = 0: the clamped loss is constant there.
-//
-// Design: K2's, doubled. alpha and adot each have a register, a
-// double-buffered shared row (16 KB of shared memory in all) and a [T, S]
-// history: alpha's in the hv buffer, as K2 keeps it in grad, adot's in the
-// scratch. The beta pass reads both at t, and overwrites alpha with hv. The
-// weights reuse lse3's three exponentials, e_k / sum. Products and sums are
-// written with __fmul_rn / __fadd_rn so that nvcc contracts none into an
-// FMA and the order matches the plain PyTorch version.
-//
-// Bound. Bytes the function must move: logp_z and v read, hv written,
-// 3 * B*T*S*4 (counted as K2's are: inputs once, outputs once). This design
-// moves 5 * B*T*S*4, because it also writes and reads the adot scratch; that
-// is its own traffic, which histories kept in shared memory would remove, so
-// it is not part of the bound. Operations: K2's 16 per element for the
-// primal, and for the tangent 7 per element and pass (3 products, 3 sums,
-// 1 division) plus 3 for hv: 33 per element. Both are far below a
-// microsecond at [16, 99, 65]; as for K2 the floor is the chain of 2*T
-// dependent steps on B of 132 SMs.
+// Design, against that chain:
+// - alpha and beta at the same time, T steps and not 2T: warps [0, W) run
+//   alpha (and adot), warps [W, 2W) beta (and bdot), one function for both
+//   (recurse). Beta's states are mirrored (r = S-1-s), so both take their
+//   neighbours r-1, r-2 from below.
+// - Warp-synchronous steps: a thread holds K consecutive states in
+//   registers, its edge states' neighbours come by __shfl_up_sync, and no
+//   block barrier runs in the time loop. K = ceil(S / 32W) <= MAX_K; the
+//   K chains of a step interleave (no branch in the step). Above 32 * MAX_K
+//   states a recursion spans W <= MAX_W warps, which trade their edge states
+//   through shared memory under a named barrier of those warps alone.
+// - Global memory off the chain. Layout "resident", where it fits the opt-in
+//   shared memory: logp_z (and v) staged once by cp.async, the histories
+//   kept in shared memory: 77 KB (K2), 154 KB (K2b) at [99, 65]. Layout
+//   "streamed": the histories in global memory (alpha in the output, the
+//   rest in a scratch the caller allocates), each recursion's rows of logp_z
+//   (and v) through a shared ring RING rows ahead by cp.async.
+//   ops/ctc_kernel.py:plan picks layout, K and W.
+// - Each recursion stops at its row's own lens; one __syncthreads() after
+//   both; then all THREADS threads write the output rows, coalesced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,280 +58,312 @@
 #define LOG_EPS (-1e30f)
 #define HALF_EPS (-5e29f)  // below this a state is unreachable
 #define MAX_S 1024
+#define MAX_K 8            // states a thread holds
+#define MAX_W 4            // warps a recursion spans
+#define THREADS 256        // 2 * MAX_W warps: alpha's, beta's; all combine
+#define RING 8             // rows in flight per recursion, streamed layout
+#define FULL 0xffffffffu
 
-__device__ __forceinline__ float lse3(float a, float b, float c) {
-  float m = fmaxf(fmaxf(a, b), c);
-  float m_safe = fmaxf(m, LOG_EPS);
-  return m + logf((expf(a - m_safe) + expf(b - m_safe)) + expf(c - m_safe));
+struct Params {
+  const float *logp, *skip;
+  const int32_t *lens, *ends;
+  const float* v;  // K2b's direction
+  float* out;      // grad (K2) or hv (K2b)
+  float* scratch;  // streamed: beta's history (and adot's, bdot's)
+  float* scalar;   // nll (K2) or nll_dot (K2b)
+  int T, S, W, streamed;
+};
+
+struct Rec {  // what one recursion reads and writes of its utterance
+  const float *lp_g, *v_g, *skip;  // global
+  float *lp, *v;                   // staged arrays, or this recursion's rings
+  float *h, *hd;                   // its history [T, S], and its tangent's
+  float* fin;                      // alpha (adot) at end, end-1 of its last row
+  float (*edge)[MAX_W][4];         // [step parity][warp], when W > 1
+  int S, n, end, W;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
 }
 
-__global__ void ctc_alpha_beta_kernel(const float* __restrict__ logp,
-                                      const float* __restrict__ skip,
-                                      const int32_t* __restrict__ lens,
-                                      const int32_t* __restrict__ ends,
-                                      float* __restrict__ nll,
-                                      float* __restrict__ grad,
-                                      int T, int S) {
-  __shared__ float row[2][MAX_S];
-  const int b = blockIdx.x;
-  const int s = threadIdx.x;
-  const bool lane = s < S;
-  const int len = lens[b];
-  const int end = ends[b];
-  const float* lp = logp + (size_t)b * T * S;
-  float* g = grad + (size_t)b * T * S;
-  const float skip_s = lane ? skip[(size_t)b * S + s] : 0.0f;
-  const float skip_s2 = (s + 2 < S) ? skip[(size_t)b * S + s + 2] : 0.0f;
-
-  // ---- alpha pass: history into grad ----
-  float lp_t = lane ? lp[s] : 0.0f;
-  float alpha = LOG_EPS;
-  if (s == 0) alpha = lp_t;
-  if (s == 1 && end > 0) alpha = lp_t;
-  if (lane) {
-    g[s] = alpha;
-    row[0][s] = alpha;
-  }
-  float lp_next = (lane && T > 1) ? lp[(size_t)S + s] : 0.0f;
-  __syncthreads();
-  for (int t = 1; t < T; ++t) {
-    const float* prev = row[(t - 1) & 1];
-    lp_t = lp_next;
-    if (lane && t + 1 < T) lp_next = lp[(size_t)(t + 1) * S + s];
-    if (lane) {
-      float a1 = s >= 1 ? prev[s - 1] : LOG_EPS;
-      float a2 = s >= 2 ? prev[s - 2] : LOG_EPS;
-      float nw = lp_t + lse3(alpha, a1, a2 + skip_s);
-      if (t < len) alpha = nw;
-      g[(size_t)t * S + s] = alpha;
-      row[t & 1][s] = alpha;
-    }
-    __syncthreads();
-  }
-
-  // ---- nll from the end lanes of the final alpha row ----
-  const float* fin = row[(T - 1) & 1];
-  float a_last = fin[end];
-  float a_prev = end > 0 ? fin[end - 1] : LOG_EPS;
-  float m = end > 0 ? fmaxf(a_last, a_prev) : a_last;
-  float m_safe = fmaxf(m, LOG_EPS);
-  float sum = expf(a_last - m_safe);
-  if (end > 0) sum = sum + expf(a_prev - m_safe);
-  const float nll_b = -(m + logf(sum));
-  if (s == 0) nll[b] = nll_b;
-  __syncthreads();  // every lane has read fin before row is reused
-
-  // ---- beta pass: grad rows from t = T-1 down ----
-  const bool pick = (s == end) || (s == end - 1 && end > 0);
-  const float beta_init = pick ? 0.0f : LOG_EPS;
-  float carry = beta_init;
-  lp_t = lane ? lp[(size_t)(T - 1) * S + s] : 0.0f;
-  for (int i = 0; i < T; ++i) {
-    const int t = T - 1 - i;
-    float* cur = row[i & 1];
-    float beta_t = (t >= len - 1) ? beta_init : carry;
-    float lp_prev = (lane && t > 0) ? lp[(size_t)(t - 1) * S + s] : 0.0f;
-    if (lane) {
-      size_t at = (size_t)t * S + s;
-      g[at] = t < len ? -expf(g[at] + beta_t + nll_b) : 0.0f;
-      cur[s] = beta_t + lp_t;
-    }
-    __syncthreads();
-    if (lane) {
-      float b0 = cur[s];
-      float b1 = s + 1 < S ? cur[s + 1] : LOG_EPS;
-      float b2 = s + 2 < S ? cur[s + 2] + skip_s2 : LOG_EPS;
-      carry = lse3(b0, b1, b2);
-    }
-    lp_t = lp_prev;
-  }
+// num / den rounded to nearest float, as __fdiv_rn, but without its
+// slow-path branch, which would end the step's basic block and keep the K
+// chains from interleaving. den here is a sum of three exponentials whose
+// largest is e^0: 1 <= den <= 3, or 0 where the result is discarded. The
+// quotient is formed in double from rcp.approx and two Newton steps, within
+// 2^-51 of the exact one; a quotient of floats lies more than 2^-49 from any
+// rounding midpoint, so the one rounding to float is the correct one.
+__device__ __forceinline__ float div_rn(float num, float den) {
+  float r0;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r0) : "f"(den));
+  const double d = den;
+  double r = r0;
+  r = fma(r, fma(-d, r, 1.0), r);
+  r = fma(r, fma(-d, r, 1.0), r);
+  return (float)((double)num * r);
 }
 
-// sum_k e_k d_k / sum, in the order ((e0 d0 + e1 d1) + e2 d2) / sum
-__device__ __forceinline__ float mix3(float e0, float e1, float e2, float d0,
-                                      float d1, float d2, float sum) {
-  float num = __fadd_rn(__fadd_rn(__fmul_rn(e0, d0), __fmul_rn(e1, d1)),
-                        __fmul_rn(e2, d2));
-  return __fdiv_rn(num, sum);
-}
-
-__global__ void ctc_hvp_kernel(const float* __restrict__ logp,
-                               const float* __restrict__ skip,
-                               const int32_t* __restrict__ lens,
-                               const int32_t* __restrict__ ends,
-                               const float* __restrict__ vdir,
-                               float* __restrict__ adot_hist,
-                               float* __restrict__ hv,
-                               float* __restrict__ nll_dot, int T, int S) {
-  __shared__ float row[2][MAX_S];   // alpha, then beta + logp
-  __shared__ float rowd[2][MAX_S];  // their tangents
-  const int b = blockIdx.x;
-  const int s = threadIdx.x;
-  const bool lane = s < S;
-  const int len = lens[b];
-  const int end = ends[b];
-  const float* lp = logp + (size_t)b * T * S;
-  const float* vv = vdir + (size_t)b * T * S;
-  float* out = hv + (size_t)b * T * S;
-  float* hist = adot_hist + (size_t)b * T * S;
-  const float skip_s = lane ? skip[(size_t)b * S + s] : 0.0f;
-  const float skip_s2 = (s + 2 < S) ? skip[(size_t)b * S + s + 2] : 0.0f;
-
-  // ---- alpha pass: alpha history into hv, adot history into the scratch --
-  float lp_t = lane ? lp[s] : 0.0f;
-  float v_t = lane ? vv[s] : 0.0f;
-  float alpha = LOG_EPS;
-  float ad = 0.0f;
-  if (s == 0 || (s == 1 && end > 0)) {
-    alpha = lp_t;
-    ad = v_t;
-  }
-  if (lane) {
-    out[s] = alpha;
-    hist[s] = ad;
-    row[0][s] = alpha;
-    rowd[0][s] = ad;
-  }
-  float lp_next = (lane && T > 1) ? lp[(size_t)S + s] : 0.0f;
-  float v_next = (lane && T > 1) ? vv[(size_t)S + s] : 0.0f;
-  __syncthreads();
-  for (int t = 1; t < T; ++t) {
-    const float* prev = row[(t - 1) & 1];
-    const float* prevd = rowd[(t - 1) & 1];
-    lp_t = lp_next;
-    v_t = v_next;
-    if (lane && t + 1 < T) {
-      lp_next = lp[(size_t)(t + 1) * S + s];
-      v_next = vv[(size_t)(t + 1) * S + s];
-    }
-    if (lane) {
-      float x1 = s >= 1 ? prev[s - 1] : LOG_EPS;
-      float x2 = (s >= 2 ? prev[s - 2] : LOG_EPS) + skip_s;
-      float d1 = s >= 1 ? prevd[s - 1] : 0.0f;
-      float d2 = s >= 2 ? prevd[s - 2] : 0.0f;
-      float m = fmaxf(fmaxf(alpha, x1), x2);
-      float m_safe = fmaxf(m, LOG_EPS);
-      float e0 = expf(alpha - m_safe);
-      float e1 = expf(x1 - m_safe);
-      float e2 = expf(x2 - m_safe);
-      float sum = (e0 + e1) + e2;
-      float nw = lp_t + (m + logf(sum));
-      float nd = nw > HALF_EPS
-                     ? __fadd_rn(v_t, mix3(e0, e1, e2, ad, d1, d2, sum))
-                     : 0.0f;
-      if (t < len) {
-        alpha = nw;
-        ad = nd;
+// Rows i = 0 .. n-1 of alpha (t = i) or beta (kBeta, t = n-1-i). y is what
+// the next lse3 reads: alpha, or beta + logp_z[t]; the history keeps alpha
+// and beta. Thread g of the recursion holds states r = gK .. gK+K-1, and
+// s = r (alpha) or S-1-r (beta): alpha's s-1, s-2 and beta's s+1, s+2 are
+// both r-1, r-2. A step's K lse3 chains come first, then the tangents.
+template <bool kTangent, int K, bool kBeta, bool kStreamed>
+__device__ __forceinline__ void recurse(const Rec& c, int gw, int lane) {
+  const int S = c.S, n = c.n, end = c.end, r0 = (gw * 32 + lane) * K;
+  const int s0 = kBeta ? S - 1 - r0 : r0, dir = kBeta ? -1 : 1;
+  const int last = kBeta ? n - 1 : 0;  // the row of step 0
+  auto fetch = [&](int i) {  // streamed: row i's states into slot i % RING
+    const int row = (last + (kBeta ? -i : i)) * S + s0;
+    const int slot = (i % RING) * S + s0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (r0 + k < S) {
+        cp_async4(c.lp + slot + dir * k, c.lp_g + row + dir * k);
+        if (kTangent) cp_async4(c.v + slot + dir * k, c.v_g + row + dir * k);
       }
-      out[(size_t)t * S + s] = alpha;
-      hist[(size_t)t * S + s] = ad;
-      row[t & 1][s] = alpha;
-      rowd[t & 1][s] = ad;
     }
+  };
+  if (kStreamed) {
+    for (int i = 0; i < RING - 1; ++i) {
+      if (i < n) fetch(i);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+  }
+  float y[K], yd[K], sk[K], lpk[K], vk[K], z[K], zd[K];
+  auto load = [&](int i) {  // step i's row of logp_z (and v)
+    if (kStreamed) {
+      if (i + RING - 1 < n) fetch(i + RING - 1);
+      asm volatile("cp.async.commit_group;\n"
+                   "cp.async.wait_group %0;\n" :: "n"(RING - 1) : "memory");
+    }
+    const int at = (kStreamed ? i % RING : last + (kBeta ? -i : i)) * S + s0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      lpk[k] = r0 + k < S ? c.lp[at + dir * k] : 0.0f;
+      vk[k] = kTangent && r0 + k < S ? c.v[at + dir * k] : 0.0f;
+    }
+  };
+  auto emit = [&](int i) {  // step i's row into the history; the next y
+    const int at = (last + (kBeta ? -i : i)) * S + s0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (r0 + k < S) c.h[at + dir * k] = z[k];
+      if (kTangent && r0 + k < S) c.hd[at + dir * k] = zd[k];
+      y[k] = kBeta ? z[k] + lpk[k] : z[k];
+      yd[k] = kBeta && kTangent ? __fadd_rn(zd[k], vk[k]) : zd[k];
+    }
+  };
+  load(0);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {  // alpha adds skip[s] to the s-2 term,
+    const int s = s0 + dir * k;  // beta skip[s+2]; step 0's states
+    sk[k] = r0 + k < S && (!kBeta || s + 2 < S) ? c.skip[kBeta ? s + 2 : s]
+                                                : 0.0f;
+    const bool on = kBeta ? s == end || (s == end - 1 && end > 0)
+                          : s == 0 || (s == 1 && end > 0);
+    z[k] = on ? (kBeta ? 0.0f : lpk[k]) : LOG_EPS;
+    zd[k] = !kBeta && on ? vk[k] : 0.0f;
+  }
+  emit(0);
+  for (int i = 1; i < n; ++i) {
+    load(i);
+    float u1 = __shfl_up_sync(FULL, y[K - 1], 1);  // states r0-1, r0-2
+    float u2 = __shfl_up_sync(FULL, y[K > 1 ? K - 2 : 0], K > 1 ? 1 : 2);
+    float du1 = 0.0f, du2 = 0.0f;
+    if (kTangent) {
+      du1 = __shfl_up_sync(FULL, yd[K - 1], 1);
+      du2 = __shfl_up_sync(FULL, yd[K > 1 ? K - 2 : 0], K > 1 ? 1 : 2);
+    }
+    if (K >= 5 && c.W > 1) {  // a warp's top two states to the next warp
+      float* e = c.edge[i & 1][gw];
+      if (lane == 31) {
+        e[0] = y[K - 1], e[1] = y[K > 1 ? K - 2 : 0];
+        e[2] = yd[K - 1], e[3] = yd[K > 1 ? K - 2 : 0];
+      }
+      asm volatile("bar.sync %0, %1;\n" :: "r"(1 + kBeta), "r"(32 * c.W)
+                   : "memory");
+      const float* f = c.edge[i & 1][gw > 0 ? gw - 1 : 0];
+      if (gw > 0 && lane == 0) u1 = f[0], u2 = f[1], du1 = f[2], du2 = f[3];
+    }
+    if (r0 < 1) u1 = LOG_EPS, du1 = 0.0f;
+    if (r0 < 2) u2 = LOG_EPS, du2 = 0.0f;
+    float e0[K], e1[K], e2[K], sum[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {  // log(e^x0 + e^x1 + e^x2), max clamped
+      const float x1 = k >= 1 ? y[k >= 1 ? k - 1 : 0] : u1;
+      const float x2 = k >= 2 ? y[k >= 2 ? k - 2 : 0] : k == 1 ? u1 : u2;
+      // no s-2 (alpha) keeps LOG_EPS + skip[s]; no s+2 (beta) is LOG_EPS
+      const float x2s = kBeta && r0 + k < 2 ? LOG_EPS : x2 + sk[k];
+      const float m = fmaxf(fmaxf(y[k], x1), x2s);
+      const float m_safe = fmaxf(m, LOG_EPS);
+      e0[k] = expf(y[k] - m_safe), e1[k] = expf(x1 - m_safe);
+      e2[k] = expf(x2s - m_safe);
+      sum[k] = (e0[k] + e1[k]) + e2[k];
+      const float l = m + logf(sum[k]);
+      z[k] = kBeta ? l : lpk[k] + l;
+    }
+#pragma unroll
+    for (int k = 0; k < K && kTangent; ++k) {  // ((e0 d0 + e1 d1) + e2 d2) / sum
+      const float d1 = k >= 1 ? yd[k >= 1 ? k - 1 : 0] : du1;
+      const float d2 = k >= 2 ? yd[k >= 2 ? k - 2 : 0] : k == 1 ? du1 : du2;
+      const float mix = div_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(e0[k], yd[k]), __fmul_rn(e1[k], d1)),
+                    __fmul_rn(e2[k], d2)), sum[k]);
+      zd[k] = z[k] > HALF_EPS ? (kBeta ? mix : __fadd_rn(vk[k], mix)) : 0.0f;
+    }
+    emit(i);
+  }
+#pragma unroll
+  for (int k = 0; k < K && !kBeta; ++k) {  // alpha's last row at end, end-1
+    const int s = s0 + k;
+    if (s == end || s == end - 1) c.fin[end - s] = y[k], c.fin[2 + end - s] = yd[k];
+  }
+}
+
+template <bool kTangent, int K, bool kStreamed>
+__global__ void __launch_bounds__(THREADS, 1) ctc_kernel(Params p) {
+  extern __shared__ float sm[];
+  __shared__ float edge[2][2][MAX_W][4];  // [alpha, beta][step parity][warp]
+  __shared__ float fin[4];
+  const int b = blockIdx.x, T = p.T, S = p.S, W = p.W;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int len = p.lens[b], end = p.ends[b];
+  const size_t TS = (size_t)T * S, A = kTangent ? 2 : 1;
+  const float* lp_g = p.logp + b * TS;
+  const float* v_g = kTangent ? p.v + b * TS : nullptr;
+  Rec ra = {lp_g, v_g, p.skip + (size_t)b * S, sm, sm + A / 2 * TS, nullptr,
+            nullptr, fin, edge[0], S, min(max(len, 1), T), end, W};
+  Rec rb = ra;
+  rb.edge = edge[1];
+  if (kStreamed) {  // rings: alpha's, beta's of logp_z; alpha's, beta's of v
+    ra.v = sm + 2 * RING * S;
+    rb.lp = ra.lp + RING * S, rb.v = ra.v + RING * S;
+    ra.h = p.out + b * TS;
+    rb.h = p.scratch + b * TS;
+    ra.hd = rb.h + gridDim.x * TS;
+    rb.hd = ra.hd + gridDim.x * TS;
+  } else {  // staged logp_z (and v), then alpha, beta (and adot, bdot)
+    ra.h = sm + A * TS, rb.h = ra.h + TS;
+    ra.hd = rb.h + TS, rb.hd = ra.hd + TS;
+    for (size_t j = tid; j < TS; j += THREADS) {
+      cp_async4(sm + j, lp_g + j);
+      if (kTangent) cp_async4(sm + TS + j, v_g + j);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
   }
+  if (warp < W)
+    recurse<kTangent, K, false, kStreamed>(ra, warp, lane);
+  else if (warp < 2 * W)
+    recurse<kTangent, K, true, kStreamed>(rb, warp - W, lane);
+  __syncthreads();  // the one barrier: both histories are complete
 
-  // ---- nll and its tangent from the end lanes of the final rows ----
-  const float* fin = row[(T - 1) & 1];
-  const float* find = rowd[(T - 1) & 1];
-  float a_last = fin[end];
-  float a_prev = end > 0 ? fin[end - 1] : LOG_EPS;
-  float m = end > 0 ? fmaxf(a_last, a_prev) : a_last;
-  float m_safe = fmaxf(m, LOG_EPS);
-  float e_last = expf(a_last - m_safe);
-  float e_prev = end > 0 ? expf(a_prev - m_safe) : 0.0f;
-  float sum = end > 0 ? e_last + e_prev : e_last;
-  const float nll_b = -(m + logf(sum));
-  const bool feasible = !(nll_b > -HALF_EPS);
-  float nd_b = 0.0f;
-  if (feasible) {
-    float d_last = find[end];
-    float d_prev = end > 0 ? find[end - 1] : 0.0f;
-    nd_b = -__fdiv_rn(
-        __fadd_rn(__fmul_rn(e_last, d_last), __fmul_rn(e_prev, d_prev)), sum);
-  }
-  if (s == 0) nll_dot[b] = nd_b;
-  __syncthreads();  // every lane has read the final rows before their reuse
-
-  // ---- beta pass: hv rows from t = T-1 down ----
-  const bool pick = (s == end) || (s == end - 1 && end > 0);
-  const float beta_init = pick ? 0.0f : LOG_EPS;
-  float carry = beta_init;
-  float carryd = 0.0f;
-  lp_t = lane ? lp[(size_t)(T - 1) * S + s] : 0.0f;
-  v_t = lane ? vv[(size_t)(T - 1) * S + s] : 0.0f;
-  for (int i = 0; i < T; ++i) {
-    const int t = T - 1 - i;
-    float* cur = row[i & 1];
-    float* curd = rowd[i & 1];
-    const bool at_last = t >= len - 1;
-    float beta_t = at_last ? beta_init : carry;
-    float bd = at_last ? 0.0f : carryd;
-    float lp_prev = (lane && t > 0) ? lp[(size_t)(t - 1) * S + s] : 0.0f;
-    float v_prev = (lane && t > 0) ? vv[(size_t)(t - 1) * S + s] : 0.0f;
-    if (lane) {
-      size_t at = (size_t)t * S + s;
-      float res = 0.0f;
+  // nll (and nll_dot) off the last alpha row; then the output rows
+  const float a_last = fin[0], a_prev = end > 0 ? fin[1] : LOG_EPS;
+  const float m = end > 0 ? fmaxf(a_last, a_prev) : a_last;
+  const float m_safe = fmaxf(m, LOG_EPS);
+  const float e_last = expf(a_last - m_safe);
+  const float e_prev = end > 0 ? expf(a_prev - m_safe) : 0.0f;
+  const float sum = end > 0 ? e_last + e_prev : e_last;
+  const float nll = -(m + logf(sum));
+  const bool feasible = !kTangent || !(nll > -HALF_EPS);
+  float nd = 0.0f;
+  if (kTangent && feasible)
+    nd = -__fdiv_rn(__fadd_rn(__fmul_rn(e_last, fin[2]),
+                              __fmul_rn(e_prev, end > 0 ? fin[3] : 0.0f)), sum);
+  if (tid == 0) p.scalar[b] = kTangent ? nd : nll;
+  float* out = p.out + b * TS;
+  for (int t = warp; t < T; t += THREADS / 32) {
+    for (int s = lane; s < S; s += 32) {
+      const size_t at = (size_t)t * S + s;
+      float r = 0.0f;
       if (t < len && feasible) {
-        float g = -expf(out[at] + beta_t + nll_b);
-        res = __fmul_rn(g, __fadd_rn(__fadd_rn(hist[at], bd), nd_b));
+        const float g = -expf((ra.h[at] + rb.h[at]) + nll);
+        r = kTangent ? __fmul_rn(g, __fadd_rn(__fadd_rn(ra.hd[at], rb.hd[at]),
+                                              nd))
+                     : g;
       }
-      out[at] = res;
-      cur[s] = beta_t + lp_t;
-      curd[s] = __fadd_rn(bd, v_t);
+      out[at] = r;
     }
-    __syncthreads();
-    if (lane) {
-      float x0 = cur[s];
-      float x1 = s + 1 < S ? cur[s + 1] : LOG_EPS;
-      float x2 = s + 2 < S ? cur[s + 2] + skip_s2 : LOG_EPS;
-      float d0 = curd[s];
-      float d1 = s + 1 < S ? curd[s + 1] : 0.0f;
-      float d2 = s + 2 < S ? curd[s + 2] : 0.0f;
-      float mb = fmaxf(fmaxf(x0, x1), x2);
-      float mb_safe = fmaxf(mb, LOG_EPS);
-      float e0 = expf(x0 - mb_safe);
-      float e1 = expf(x1 - mb_safe);
-      float e2 = expf(x2 - mb_safe);
-      float sb = (e0 + e1) + e2;
-      carry = mb + logf(sb);
-      carryd = carry > HALF_EPS ? mix3(e0, e1, e2, d0, d1, d2, sb) : 0.0f;
-    }
-    lp_t = lp_prev;
-    v_t = v_prev;
   }
+}
+
+typedef void (*Kernel)(Params);
+#define KS(t, st)                                                    \
+  {ctc_kernel<t, 1, st>, ctc_kernel<t, 2, st>, ctc_kernel<t, 3, st>, \
+   ctc_kernel<t, 4, st>, ctc_kernel<t, 5, st>, ctc_kernel<t, 6, st>, \
+   ctc_kernel<t, 7, st>, ctc_kernel<t, 8, st>}
+static const Kernel kernels[2][2][MAX_K] = {{KS(false, false), KS(false, true)},
+                                            {KS(true, false), KS(true, true)}};
+
+// dynamic shared memory of a launch, as ops/ctc_kernel.py:plan reckons it
+static long smem_bytes(int T, int S, int tangent, int streamed) {
+  const long arrays = tangent ? 2 : 1;
+  return 4 * arrays * (streamed ? 2L * RING * S : 3L * T * S);
+}
+
+static int launch(int tangent, const Params& p, int B, int K, int smem,
+                  void* stream) {
+  if (B <= 0) return 0;
+  if (p.T < 1 || p.S < 1 || p.S > MAX_S || K < 1 || K > MAX_K || p.W < 1 ||
+      p.W > MAX_W || p.S > 32 * p.W * K || (p.W > 1 && K < 5) ||
+      smem != smem_bytes(p.T, p.S, tangent, p.streamed) ||
+      (p.streamed && !p.scratch))
+    return (int)cudaErrorInvalidValue;
+  const Kernel fn = kernels[tangent][p.streamed ? 1 : 0][K - 1];
+  static int opted[16][2][2][MAX_K];  // per device: the size set so far
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int* seen = dev < 16 ? &opted[dev][tangent][p.streamed][K - 1] : nullptr;
+  if (smem > 48 * 1024 && (!seen || smem > *seen)) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (seen) *seen = smem;
+  }
+  fn<<<B, THREADS, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 int metaasr_ctc_max_lanes(void) { return MAX_S; }
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
-int metaasr_ctc_alpha_beta(const void* logp, const void* skip,
-                           const void* lens, const void* ends, void* nll,
-                           void* grad, int B, int T, int S, void* stream) {
-  if (B <= 0) return 0;
-  if (T < 1 || S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
-  int threads = ((S + 31) / 32) * 32;
-  ctc_alpha_beta_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)logp, (const float*)skip, (const int32_t*)lens,
-      (const int32_t*)ends, (float*)nll, (float*)grad, T, S);
-  return (int)cudaGetLastError();
+// the opt-in shared memory per block of the current device, in bytes
+int metaasr_ctc_smem_optin(void) {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
 }
 
-// K2b on `stream`: hv and nll_dot from K2's inputs and the direction v;
-// `scratch` is [B, T, S] f32. Returns cudaGetLastError() (0 = launched).
+// K2 on `stream` with the plan's K, W, layout and shared memory; `scratch`
+// is [B, T, S] f32 in the streamed layout, else null. Returns
+// cudaGetLastError() (0 = launched).
+int metaasr_ctc_alpha_beta(const void* logp, const void* skip,
+                           const void* lens, const void* ends, void* nll,
+                           void* grad, void* scratch, int B, int T, int S,
+                           int K, int W, int streamed, int smem, void* stream) {
+  Params p = {(const float*)logp, (const float*)skip, (const int32_t*)lens,
+              (const int32_t*)ends, nullptr, (float*)grad, (float*)scratch,
+              (float*)nll, T, S, W, streamed};
+  return launch(0, p, B, K, smem, stream);
+}
+
+// K2b likewise: hv and nll_dot from K2's inputs and the direction v;
+// `scratch` is [3, B, T, S] f32 in the streamed layout, else null.
 int metaasr_ctc_hvp(const void* logp, const void* skip, const void* lens,
                     const void* ends, const void* v, void* scratch, void* hv,
-                    void* nll_dot, int B, int T, int S, void* stream) {
-  if (B <= 0) return 0;
-  if (T < 1 || S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
-  int threads = ((S + 31) / 32) * 32;
-  ctc_hvp_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)logp, (const float*)skip, (const int32_t*)lens,
-      (const int32_t*)ends, (const float*)v, (float*)scratch, (float*)hv,
-      (float*)nll_dot, T, S);
-  return (int)cudaGetLastError();
+                    void* nll_dot, int B, int T, int S, int K, int W,
+                    int streamed, int smem, void* stream) {
+  Params p = {(const float*)logp, (const float*)skip, (const int32_t*)lens,
+              (const int32_t*)ends, (const float*)v, (float*)hv,
+              (float*)scratch, (float*)nll_dot, T, S, W, streamed};
+  return launch(1, p, B, K, smem, stream);
 }
 
 }  // extern "C"

@@ -10,7 +10,8 @@ forward-mode tangent of the α/β recursion, and ``nll_dot = <grad, v>``. On a
 CPU tensor they run :func:`plain_ctc_alpha_beta` / :func:`plain_ctc_hvp`; on
 a CUDA tensor they launch ``csrc/ctc.cu`` (the source's header gives the
 kernels' design and bounds) or raise. There is no size fallback: the
-kernels take any T.
+kernels take any T and S up to ``MAX_S``; :func:`plan` picks how a launch
+lays out its histories and states.
 
 :func:`ctc_loss_kernel` is the counterpart of ``ctc_loss_pallas``: it
 gathers the emissions, builds the skip bias and ``end = 2·label_len``, and
@@ -26,6 +27,7 @@ unsupported and raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -180,17 +182,90 @@ def plain_ctc_hvp(logp_z: torch.Tensor, skip: torch.Tensor,
     return hv, nll_dot[:, 0]
 
 
+MAX_S = 1024        # csrc/ctc.cu: states (lanes) of an utterance
+MAX_K = 8           # states a thread holds
+RING = 8            # rows of logp_z (and v) a streamed recursion keeps ahead
+STATIC_SMEM = 1024  # the kernel's static shared memory (edge states), rounded
+
+
+def plan(t_len: int, s_len: int, smem_limit: int,
+         tangent: bool = False) -> dict:
+    """How K2 (K2b with ``tangent``) runs [*, T, S] on a device whose blocks
+    can opt into ``smem_limit`` bytes of shared memory: ``warps`` per
+    recursion and ``k`` states per thread (k = ceil(S / 32 warps) <= MAX_K,
+    the fewest warps that allow it); ``layout`` "resident" when logp_z (and
+    v) and the histories (alpha, beta; adot, bdot) fit in shared memory, else
+    "streamed" (histories in global memory, rows through a ring); the
+    launch's dynamic ``smem_bytes``; and ``scratch``, the [B, T, S] f32
+    arrays the caller allocates (streamed: beta's history, and adot's and
+    bdot's). Raises for S > MAX_S."""
+    if s_len > MAX_S or s_len < 1 or t_len < 1:
+        raise ValueError(f"S={s_len} exceeds the kernel's {MAX_S} lanes"
+                         if s_len > MAX_S else
+                         f"T={t_len}, S={s_len}: both must be >= 1")
+    warps = -(-s_len // (32 * MAX_K))
+    arrays = 2 if tangent else 1   # logp_z, and v under the tangent
+    out = {"warps": warps, "k": -(-s_len // (32 * warps)),
+           "layout": "resident", "smem_bytes": 4 * arrays * 3 * t_len * s_len,
+           "scratch": 0}
+    if out["smem_bytes"] + STATIC_SMEM > smem_limit:
+        out.update(layout="streamed", smem_bytes=4 * arrays * 2 * RING * s_len,
+                   scratch=2 * arrays - 1)
+        if out["smem_bytes"] + STATIC_SMEM > smem_limit:
+            raise ValueError(f"S={s_len} needs {out['smem_bytes']} bytes of "
+                             f"shared memory; the device allows {smem_limit}")
+    return out
+
+
+_smem: dict = {}
+
+
+def _smem_limit(lib, device: torch.device) -> int:
+    """The opt-in shared memory per block of ``device``, cached."""
+    key = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if key not in _smem:
+        with torch.cuda.device(key):
+            _smem[key] = lib.metaasr_ctc_smem_optin()
+    return _smem[key]
+
+
+def launch_plan(logp_z: torch.Tensor, tangent: bool = False) -> dict:
+    """The :func:`plan` of a launch on ``logp_z`` (a CUDA tensor)."""
+    lib = _library()
+    _, t_len, s_len = logp_z.shape
+    _check_lanes(lib, s_len)
+    return plan(t_len, s_len, _smem_limit(lib, logp_z.device), tangent)
+
+
+def _launch_args(logp_z: torch.Tensor, tangent: bool):
+    """(the plan's scratch tensor or None, the C call's trailing arguments)
+    for a launch on ``logp_z``'s device. The caller holds the scratch tensor
+    until the launch is queued; the stream orders its reuse after that."""
+    pl = launch_plan(logp_z, tangent)
+    scratch = (torch.empty((pl["scratch"],) + tuple(logp_z.shape),
+                           dtype=torch.float32, device=logp_z.device)
+               if pl["scratch"] else None)
+    stream = torch.cuda.current_stream(logp_z.device).cuda_stream
+    tail = (None if scratch is None else scratch.data_ptr(),
+            *logp_z.shape, pl["k"], pl["warps"],
+            int(pl["layout"] == "streamed"), pl["smem_bytes"], stream)
+    return scratch, tail
+
+
+@functools.cache
 def _library():
     from metaasr_tpu_torch.ops import _build
 
     lib = _build.load("ctc")
     lib.metaasr_ctc_max_lanes.restype = ctypes.c_int
+    lib.metaasr_ctc_smem_optin.restype = ctypes.c_int
     lib.metaasr_ctc_alpha_beta.restype = ctypes.c_int
     lib.metaasr_ctc_alpha_beta.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.metaasr_ctc_hvp.restype = ctypes.c_int
     lib.metaasr_ctc_hvp.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     return lib
 
 
@@ -241,15 +316,14 @@ def ctc_alpha_beta(logp_z: torch.Tensor, skip: torch.Tensor,
     tensor launches K2 (counted in ``launches``) or raises."""
     if not _check(logp_z, skip, lens, end):
         return plain_ctc_alpha_beta(logp_z, skip, lens, end)
+    scratch, tail = _launch_args(logp_z, tangent=False)
     lib = _library()
-    bsz, t_len, s_len = logp_z.shape
-    _check_lanes(lib, s_len)
-    nll = torch.empty((bsz,), dtype=torch.float32, device=logp_z.device)
+    nll = torch.empty((logp_z.shape[0],), dtype=torch.float32,
+                      device=logp_z.device)
     grad = torch.empty_like(logp_z)
-    stream = torch.cuda.current_stream(logp_z.device).cuda_stream
     rc = lib.metaasr_ctc_alpha_beta(
         logp_z.data_ptr(), skip.data_ptr(), lens.data_ptr(), end.data_ptr(),
-        nll.data_ptr(), grad.data_ptr(), bsz, t_len, s_len, stream)
+        nll.data_ptr(), grad.data_ptr(), *tail)
     if rc != 0:
         raise RuntimeError(f"ctc kernel launch failed: cudaError {rc}")
     ctc_alpha_beta.launches += 1
@@ -264,20 +338,18 @@ def ctc_hvp(logp_z: torch.Tensor, skip: torch.Tensor, lens: torch.Tensor,
     """K2's inputs and a direction v [B, T, S] f32 -> (hv [B, T, S] =
     (∂²nll/∂logp_z²)·v, nll_dot [B] = <grad, v>). A CPU tensor runs the
     plain version; a CUDA tensor launches K2b (counted in ``launches``) or
-    raises. The α̇ history is a [B, T, S] scratch allocated here."""
+    raises. Where :func:`plan` streams the histories, their [3, B, T, S]
+    scratch is allocated here."""
     if not _check(logp_z, skip, lens, end, v):
         return plain_ctc_hvp(logp_z, skip, lens, end, v)
+    scratch, tail = _launch_args(logp_z, tangent=True)
     lib = _library()
-    bsz, t_len, s_len = logp_z.shape
-    _check_lanes(lib, s_len)
     hv = torch.empty_like(logp_z)
-    scratch = torch.empty_like(logp_z)
-    nll_dot = torch.empty((bsz,), dtype=torch.float32, device=logp_z.device)
-    stream = torch.cuda.current_stream(logp_z.device).cuda_stream
+    nll_dot = torch.empty((logp_z.shape[0],), dtype=torch.float32,
+                          device=logp_z.device)
     rc = lib.metaasr_ctc_hvp(
         logp_z.data_ptr(), skip.data_ptr(), lens.data_ptr(), end.data_ptr(),
-        v.data_ptr(), scratch.data_ptr(), hv.data_ptr(), nll_dot.data_ptr(),
-        bsz, t_len, s_len, stream)
+        v.data_ptr(), tail[0], hv.data_ptr(), nll_dot.data_ptr(), *tail[1:])
     if rc != 0:
         raise RuntimeError(f"ctc hvp kernel launch failed: cudaError {rc}")
     ctc_hvp.launches += 1

@@ -312,6 +312,82 @@ def test_alpha_beta_checks_inputs():
     assert ctc_kernel.ctc_alpha_beta.launches == before  # CPU: plain version
 
 
+# ---------------- the kernels' launch plan ----------------
+
+H100_SMEM = 232448  # opt-in shared memory per block of an H100 (227 KB)
+
+
+@pytest.mark.parametrize("t_len,s_len,k2,k2b", [
+    # chip_smoke.py's CTC_SHAPES, [T, S = 2U+1]: fused and per_task
+    (99, 65, ("resident", 3, 1, 77220, 0), ("resident", 3, 1, 154440, 0)),
+    (50, 15, ("resident", 1, 1, 9000, 0), ("resident", 1, 1, 18000, 0)),
+    (1000, 41, ("streamed", 2, 1, 2624, 1), ("streamed", 2, 1, 5248, 3)),
+    # wide_s: K2's histories fit, K2b's do not; max_s: four warps a pass
+    (99, 121, ("resident", 4, 1, 143748, 0), ("streamed", 4, 1, 15488, 3)),
+    (1100, 1023, ("streamed", 8, 4, 65472, 1), ("streamed", 8, 4, 130944, 3)),
+])
+def test_plan_at_the_checked_shapes(t_len, s_len, k2, k2b):
+    """Layout, states per thread, warps per recursion, shared memory and
+    scratch arrays for K2 and K2b at chip_smoke.py's CTC_SHAPES on an H100;
+    every launch fits the opt-in shared memory with the static part."""
+    for tangent, want in ((False, k2), (True, k2b)):
+        got = ctc_kernel.plan(t_len, s_len, H100_SMEM, tangent)
+        assert (got["layout"], got["k"], got["warps"], got["smem_bytes"],
+                got["scratch"]) == want
+        assert got["smem_bytes"] + ctc_kernel.STATIC_SMEM <= H100_SMEM
+
+
+def test_plan_reckons_resident_bytes_against_the_limit():
+    """Resident: logp_z (and v) plus alpha and beta (and their tangents) as
+    [T, S] f32; one byte short of the limit streams instead."""
+    t_len, s_len = 99, 65
+    for tangent, arrays in ((False, 1), (True, 2)):
+        need = 4 * arrays * 3 * t_len * s_len + ctc_kernel.STATIC_SMEM
+        assert ctc_kernel.plan(t_len, s_len, need, tangent)["layout"] == \
+            "resident"
+        short = ctc_kernel.plan(t_len, s_len, need - 1, tangent)
+        assert short["layout"] == "streamed"
+        assert short["smem_bytes"] == 4 * arrays * 2 * ctc_kernel.RING * s_len
+    with pytest.raises(ValueError, match="shared memory"):
+        ctc_kernel.plan(t_len, s_len, 1024, tangent=True)
+
+
+def test_plan_covers_every_lane_count():
+    """For every S the kernel takes: 32 * warps * k states cover S, k <=
+    MAX_K, at most four warps a recursion, and several warps only with k >=
+    5 (what csrc/ctc.cu's launcher accepts); S > MAX_S raises."""
+    for s_len in range(1, ctc_kernel.MAX_S + 1):
+        got = ctc_kernel.plan(10, s_len, H100_SMEM)
+        k, w = got["k"], got["warps"]
+        assert 32 * w * k >= s_len and 1 <= k <= ctc_kernel.MAX_K
+        assert 1 <= w <= 4 and (w == 1 or k >= 5)
+        assert 32 * w * (k - 1) < s_len              # no state-free round
+    with pytest.raises(ValueError, match="exceeds"):
+        ctc_kernel.plan(10, ctc_kernel.MAX_S + 1, H100_SMEM)
+
+
+def test_wrappers_raise_above_the_lane_limit(monkeypatch):
+    """A launch with S > 1024 raises before any library call, as it did."""
+    class Lib:
+        @staticmethod
+        def metaasr_ctc_max_lanes():
+            return 1024
+
+    monkeypatch.setattr(ctc_kernel, "_check", lambda *a: True)
+    monkeypatch.setattr(ctc_kernel, "_library", lambda: Lib)
+    s_len = 1025
+    lp = torch.zeros((1, 3, s_len))
+    skip = torch.zeros((1, s_len))
+    lens = torch.full((1,), 3, dtype=torch.int32)
+    end = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="exceeds"):
+        ctc_kernel.ctc_alpha_beta(lp, skip, lens, end)
+    with pytest.raises(ValueError, match="exceeds"):
+        ctc_kernel.ctc_hvp(lp, skip, lens, end, lp)
+    with pytest.raises(ValueError, match="exceeds"):
+        ctc_kernel.launch_plan(lp)
+
+
 # ---------------- the joint loss pieces ----------------
 
 def _targets():

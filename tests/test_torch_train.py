@@ -27,7 +27,7 @@ from metaasr_tpu.data.tokenizer import CharTokenizer as RefCharTokenizer
 from metaasr_tpu.frontend.specaug import spec_augment as ref_spec_augment
 from metaasr_tpu.models.losses import prepare_decoder_targets as ref_targets
 from metaasr_tpu.train.optimizer import make_optimizer as ref_make_optimizer
-from metaasr_tpu_torch import cli
+from metaasr_tpu_torch import cli, device
 from metaasr_tpu_torch.config import Config, OptimizerConfig
 from metaasr_tpu_torch.data import sampler, synthetic
 from metaasr_tpu_torch.data.audio_io import load_wav
@@ -38,7 +38,9 @@ from metaasr_tpu_torch.models.losses import prepare_decoder_targets
 from metaasr_tpu_torch.serve.export import ServingDecoder, write_bundle
 from metaasr_tpu_torch.train import optimizer
 from metaasr_tpu_torch.train.checkpoint import load_params_npz, save_params_npz
+from metaasr_tpu_torch.task import ASRTask
 from metaasr_tpu_torch.train.meta_train import MetaASRTrainer, to_device
+from metaasr_tpu_torch.train.mono import MonoASRTrainer
 from metaasr_tpu_torch.weights import flax_to_params, params_to_flax
 from tests.test_torch_transformer import VOCAB, flax_and_port
 
@@ -450,3 +452,78 @@ def test_trainer_defaults_to_cuda_without_fallback(corpora, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MetaASRTrainer(_train_cfg(data_dir), task, {}, {},
                        CharTokenizer.ascii_default(), str(tmp_path))
+
+
+# ---------------- resuming through the CLI; the precision policy ----------------
+
+@pytest.fixture
+def tf32_off():
+    """Both TF32 flags off before the test, and as they were after it."""
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = False
+    yield
+    for f, b in zip(flags, before):
+        f.allow_tf32 = b
+
+
+def _under_policy() -> bool:
+    return (torch.backends.cuda.matmul.allow_tf32
+            == torch.backends.cudnn.allow_tf32 == device.ALLOW_TF32 is True)
+
+
+def test_cli_resume_keeps_the_recorded_config(corpora, tmp_path, capsys,
+                                              tf32_off):
+    """--mode train without --config resumes under <workdir>/config.yaml, as
+    the reference's CLI does (metaasr_tpu/cli.py), instead of saving
+    Config() defaults over it; the run goes on from its checkpoint. The CLI
+    runs under the precision policy."""
+    _, data_dir = corpora
+    config3 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                           "configs", "config3_fomaml.yaml")
+    rc = cli.main(["--mode", "train", "--device", "cpu", "--config", config3,
+                   "--data-dir", data_dir, "--workdir", str(tmp_path),
+                   "--max-steps", "2",
+                   "-o", "model.d_model=32", "-o", "model.num_heads=2",
+                   "-o", "model.d_ff=64", "-o", "model.num_encoder_layers=1",
+                   "-o", "model.num_decoder_layers=1",
+                   "-o", "meta.tasks_per_batch=2", "-o", "meta.k_support=1",
+                   "-o", "meta.k_query=1", "-o", "meta.inner_steps=1",
+                   "-o", "train.log_every=1", "-o", "train.ckpt_every=1",
+                   "-o", "data.max_frames=200", "-o", "data.max_tokens=16"])
+    assert rc == 0 and _under_policy()
+    recorded = (tmp_path / "config.yaml").read_bytes()
+    rc = cli.main(["--mode", "train", "--device", "cpu",
+                   "--workdir", str(tmp_path), "--max-steps", "4"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["step"] == 4
+    assert (tmp_path / "config.yaml").read_bytes() == recorded
+    # restored at step 2: the second run logged steps 3 and 4, no others
+    with open(tmp_path / "logs" / "scalars.jsonl") as f:
+        assert [json.loads(line)["step"] for line in f] == [1, 2, 3, 4]
+
+
+@pytest.mark.parametrize("entry", ["meta_trainer", "mono_trainer", "serving"])
+def test_entry_points_run_under_the_precision_policy(corpora, tmp_path,
+                                                     tf32_off, entry):
+    """MetaASRTrainer, MonoASRTrainer and ServingDecoder set the port's one
+    fp32 policy (device.py) where they resolve their device."""
+    _, data_dir = corpora
+    cfg = _train_cfg(data_dir)
+    tok = CharTokenizer.ascii_default()
+    cfg.model.vocab_size = tok.vocab_size
+    task = ASRTask(cfg, tok.sos_eos_id, device="cpu")
+    if entry == "serving":
+        write_bundle(str(tmp_path / "b"), cfg,
+                     params_to_flax(task.init_params(0), 2), tok, [(2, 16240)])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if entry == "meta_trainer":
+        MetaASRTrainer(cfg, task, {}, {}, tok, str(tmp_path), device="cpu")
+    elif entry == "mono_trainer":
+        MonoASRTrainer(cfg, task, [], None, tok, str(tmp_path), device="cpu")
+    else:
+        ServingDecoder(str(tmp_path / "b"), cfg, device="cpu")
+    assert _under_policy()
