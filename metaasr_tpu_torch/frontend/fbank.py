@@ -4,9 +4,11 @@ Per frame, DC removal, preemphasis, the povey window and the DFT of the
 zero-padded 512-point window are all linear maps of the 400 raw samples,
 so they fold into two [400, 256] matrices (real and imaginary planes); the
 mel banks are a [256, num_mel_bins] matrix. :class:`FbankParams` re-derives
-them in numpy. The features themselves come from K1
-(``fbank_kernel.fused_log_mel``: the CUDA kernel on the card, its plain
-version on the CPU); masking and per-utterance CMVN follow here.
+them in numpy (the plain version's product), and keeps the unfolded values
+(window, preemphasis, DC removal) that K1 applies one by one before its
+FFT. The features themselves come from K1 (``fbank_kernel.fused_log_mel``:
+the CUDA kernel on the card, its plain version on the CPU); masking and
+per-utterance CMVN follow here.
 """
 
 from __future__ import annotations
@@ -34,12 +36,16 @@ def num_frames(num_samples: int) -> int:
 
 @dataclass(frozen=True)
 class FbankParams:
-    """Front-end matrices (built in float64, stored float32)."""
+    """Front-end matrices (built in float64, stored float32) and the
+    unfolded front-end they fold."""
 
     c_cos: np.ndarray  # [400, 256]
     c_sin: np.ndarray  # [400, 256]
     mel_t: np.ndarray  # [256, num_mel_bins]
     num_mel_bins: int
+    window: np.ndarray  # [400] povey window, float64
+    preemphasis: float
+    remove_dc_offset: bool
 
     @classmethod
     @functools.lru_cache(maxsize=8)
@@ -56,14 +62,17 @@ class FbankParams:
             pre[idx, idx - 1] = -preemphasis
             pre[0, 0] = 1.0 - preemphasis
             lin = pre @ lin
-        lin = oracle.povey_window(n)[:, None] * lin  # diag(w) @ pre @ dc
+        window = oracle.povey_window(n)
+        lin = window[:, None] * lin  # diag(w) @ pre @ dc
         ang = 2.0 * np.pi * np.outer(np.arange(n), np.arange(N_BINS)) / N_FFT
         mel = oracle.mel_banks(num_mel_bins, N_FFT, sample_rate, low_freq,
                                high_freq)
         return cls(c_cos=(lin.T @ np.cos(ang)).astype(np.float32),
                    c_sin=(lin.T @ -np.sin(ang)).astype(np.float32),
                    mel_t=mel.T.astype(np.float32),
-                   num_mel_bins=num_mel_bins)
+                   num_mel_bins=num_mel_bins, window=window,
+                   preemphasis=float(preemphasis),
+                   remove_dc_offset=bool(remove_dc_offset))
 
 
 def frame_lengths(audio_lens: torch.Tensor) -> torch.Tensor:
