@@ -38,9 +38,12 @@ Phases, one JSON line each; any failure exits non-zero:
 4. parity  — a tiny fp32 model served on cuda and on cpu from one bundle
              gives identical texts and scores within 1e-4.
 5. ctc_kernel — K2 (CTC alpha/beta) against its plain PyTorch version at
-             [B, T, U, V] = [16, 99, 32, 30] (tasks fused), [4, 99, 32, 30]
-             (per task), [3, 50, 7, 12], [8, 1000, 20, 30], [4, 99, 60, 30]
-             (S = 121) and [2, 1100, 511, 30] (S = 1,023, the widest), with
+             [B, T, U, V] = [4, 63, 32, 30] (the run's first K2 launch:
+             49,140 B of dynamic shared memory, under 48 KB but over it
+             with the static part), [16, 99, 32, 30] (tasks fused),
+             [4, 99, 32, 30] (per task), [3, 50, 7, 12], [8, 1000, 20, 30],
+             [4, 99, 60, 30] (S = 121) and [2, 1100, 511, 30] (S = 1,023,
+             the widest), with
              ragged T, an empty label and an infeasible row: loss within
              atol = rtol = 1e-5, gradient l2rel <= 1.9e-3, the infeasible
              row's loss and gradient 0 through the autograd Function; each
@@ -95,7 +98,7 @@ Phases, one JSON line each; any failure exits non-zero:
              exact launch counts (serving: 8 K3 per request, 0 K3b).
 
 11. ctc_hvp_kernel — K2b (the CTC Hessian-vector product) against its plain
-             PyTorch version at K2's six shapes, a seeded direction v: hv
+             PyTorch version at K2's seven shapes, a seeded direction v: hv
              l2rel <= 1e-3 and max |diff| <= 1e-5 (1 + max |hv|); against
              the plain versions run in float64, hv l2rel <= 1e-3 and nll_dot
              within 1e-4 (1 + |<grad, v>|), both bars times T / 100 at
@@ -124,9 +127,30 @@ Phases, one JSON line each; any failure exits non-zero:
              the held-out accent; then one MAML step of a small VGG-BLSTM
              (hidden 64, 2 layers) through the same trainer, whose
              recurrence runs in the autograd loop (0 K3/K3b launches);
-             exact launch counts.
+             and one ``eval_heldout`` of the MAML state (1 support draw,
+             4 test utterances, beam); exact launch counts.
+14. meta_test — the meta-test path through the CLI's ``main``, in this
+             process, at config3 width (``configs/config3_fomaml.yaml``) on
+             an 8-accent corpus of 16 utterances each, ``tango`` held out:
+             ``--mode train`` 4 FOMAML steps with a held-out evaluation
+             every 2 (2 support draws, 8 test utterances, beam 10), then
+             ``adapt --use-best --decode-mode beam --dump-nbest 3``,
+             ``test --avg-last 2``, ``export --export-buckets 4x96000`` and
+             ``serve`` of that bundle without and with ``--config`` (the
+             same transcripts); one ``eval_heldout`` of the best state
+             under the profiler (busy share, kernels per decode batch);
+             WER/CER of each evaluation, seconds per mode; exact K1/K2
+             launch counts per mode.
+15. mono_test — the baseline's meta-test modes through the CLI at
+             config1 width: 4 ``--algo no`` steps, ``test`` (the held-out
+             accent through ``MonoASRTrainer.evaluate``), ``transcribe``
+             (every accent through a decode-only meta trainer) and
+             ``transcribe`` of the same manifests without transcripts
+             (hypotheses, no WER); exact K1/K3 launch counts (8 K3 per
+             decode batch).
 
-Then a ``{"kernels": [...]}`` line (time, bound, launches on the main
+Then a line of the held-out WERs of phases 13 and 14 (random init: a
+trend), a ``{"kernels": [...]}`` line (time, bound, launches on the main
 paths per kernel) and the last line ``{"ok": true, "device": {...}}``.
 
 Precision: the phases that time entry points run under the port's own
@@ -154,6 +178,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -686,7 +711,10 @@ def phase_parity(torch):
 
 # ---------------------------------------------------------------- K2 ----
 
-CTC_SHAPES = {"fused": (16, 99, 32, 30), "per_task": (4, 99, 32, 30),
+# edge_48k first: the run's first K2 launch, at a dynamic shared memory
+# (49,140 B) under 48 KB that needs the opt-in with the static edge states
+CTC_SHAPES = {"edge_48k": (4, 63, 32, 30),
+              "fused": (16, 99, 32, 30), "per_task": (4, 99, 32, 30),
               "odd": (3, 50, 7, 12), "long_t": (8, 1000, 20, 30),
               "wide_s": (4, 99, 60, 30),     # S = 121: K2b's histories spill
               "max_s": (2, 1100, 511, 30)}   # S = 1,023: four warps a pass
@@ -1775,6 +1803,15 @@ def phase_maml_entry(torch):
         adapted_finite = all(bool(torch.isfinite(v).all())
                              for v in adapted.values())
         counts = all_counts()
+        # the meta-test after MAML: one support draw, 4 test utterances,
+        # beam (random init and two steps: a trend, not a result)
+        zero_counts()
+        t0 = time.perf_counter()
+        heldout = trainer.eval_heldout(state["params"], max_utts=4,
+                                       support_draws=1)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_counts = all_counts()
 
         # a small VGG-BLSTM under MAML: the recurrence leaves K3/K3b for
         # the twice-differentiable autograd loop
@@ -1800,6 +1837,8 @@ def phase_maml_entry(torch):
             + m.adapt_steps,
             "k2b": steps * m.tasks_per_batch * m.inner_steps,
             "k3": 0, "k3b": 0}
+    # adaptation (first order: no K2b) + one decode batch
+    eval_want = {"k1": 2, "k2": m.adapt_steps, "k2b": 0, "k3": 0, "k3b": 0}
     vm = small.meta
     vgg_want = {"k1": 2 * vm.tasks_per_batch,
                 "k2": vm.tasks_per_batch * (vm.inner_steps + 1),
@@ -1814,6 +1853,10 @@ def phase_maml_entry(torch):
            "ckpt_steps": ckpts, "restored_equal": restored_equal,
            "adapted_leaves": len(adapted), "adapt_test_utts": len(test_idx),
            "launches": counts, "launches_expected": want,
+           "heldout_eval": {"decode_mode": cfg.train.eval_decode_mode,
+                            "draws": 1, "max_utts": 4, "scores": heldout,
+                            "seconds": eval_s, "launches": eval_counts,
+                            "launches_expected": eval_want},
            "vgg_blstm_maml": {
                "model": {"blstm_hidden": 64, "blstm_layers": 2,
                          "vgg_channels": [16, 32], "dtype": "float32"},
@@ -1828,9 +1871,252 @@ def phase_maml_entry(torch):
     if not (vgg_state["step"] == 1 and small.model.lstm_impl == "scan"
             and all(math.isfinite(r["meta_loss"]) for r in vgg_recs)):
         raise SystemExit("the VGG-BLSTM MAML step failed")
-    if counts != want or vgg_counts != vgg_want:
-        raise SystemExit(f"MAML entry launch counts {counts} / {vgg_counts}, "
-                         f"want {want} / {vgg_want}")
+    if not (cfg.train.eval_decode_mode == "beam"
+            and all(math.isfinite(v) and v >= 0 for v in heldout.values())):
+        raise SystemExit(f"MAML held-out evaluation failed: {heldout}")
+    if counts != want or vgg_counts != vgg_want or eval_counts != eval_want:
+        raise SystemExit(f"MAML entry launch counts {counts} / {vgg_counts} "
+                         f"/ {eval_counts}, want {want} / {vgg_want} / "
+                         f"{eval_want}")
+    return out
+
+
+# ---------------------------------------------------- the meta-test ----
+
+def run_cli(argv) -> tuple[str, float]:
+    """``metaasr_tpu_torch.cli.main`` in this process (so the launch
+    counters stay readable) -> (its standard output, seconds)."""
+    import io
+
+    import torch
+
+    from metaasr_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise SystemExit(f"cli {argv[:2]} exited {rc}")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_meta_test(torch):
+    """train (held-out evaluation every 2 steps) -> adapt --use-best (beam,
+    3-best dumps) -> test --avg-last 2 -> export -> serve the bundle without
+    and with --config, through the CLI at config3 width; then one
+    eval_heldout under the profiler."""
+    from metaasr_tpu_torch.cli import make_trainer
+    from metaasr_tpu_torch.config import load_config
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+    from metaasr_tpu_torch.data.tokenizer import CharTokenizer
+
+    config_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "config3_fomaml.yaml")
+    steps, eval_every, draws, eval_utts, utts = 4, 2, 2, 8, 16
+    seconds, counts = {}, {}
+
+    def cli(path, argv):
+        zero_counts()
+        out, seconds[path] = run_cli(argv)
+        counts[path] = all_counts()
+        return out
+
+    with tempfile.TemporaryDirectory() as d:
+        data, wd = os.path.join(d, "data"), os.path.join(d, "wd")
+        generate_dataset(data, utts_per_accent=utts, words_per_utt=(2, 4),
+                         seed=0)
+        cli("meta_test_train", [
+            "--mode", "train", "--config", config_path, "--data-dir", data,
+            "--workdir", wd, "--max-steps", str(steps),
+            "-o", "data.heldout_accents=tango",
+            "-o", f"train.eval_every={eval_every}",
+            "-o", f"train.eval_support_draws={draws}",
+            "-o", f"train.eval_max_utts={eval_utts}",
+            "-o", "train.eval_decode_mode=beam", "-o", "train.log_every=1",
+            "-o", "train.ckpt_every=1000"])
+        with open(os.path.join(wd, "logs", "scalars.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        best_metrics_path = os.path.join(wd, "ckpts", "best", "metrics.json")
+        with open(best_metrics_path) as f:
+            best_metrics = json.load(f)
+        cli("cli_adapt", ["--mode", "adapt", "--workdir", wd, "--use-best",
+                          "--decode-mode", "beam", "--dump-nbest", "3"])
+        with open(os.path.join(wd, "hyps_tango.jsonl")) as f:
+            dumps = [json.loads(line) for line in f]
+        with open(os.path.join(wd, "adapt_results.json")) as f:
+            adapt_results = json.load(f)
+        cli("cli_test", ["--mode", "test", "--workdir", wd,
+                         "--avg-last", "2"])
+        with open(os.path.join(wd, "test_results.json")) as f:
+            test_results = json.load(f)
+        bundle = os.path.join(d, "bundle")
+        export = json.loads(cli("cli_export", [
+            "--mode", "export", "--workdir", wd, "--export-dir", bundle,
+            "--export-buckets", "4x96000"]))
+        wavs = [os.path.join(data, "wav", "tango", f"tango_000{i}.wav")
+                for i in range(4)]
+        served = {}
+        for path, extra in (("cli_serve_bundle", []),
+                            ("cli_serve_bundle_config",
+                             ["--config", os.path.join(wd, "config.yaml")])):
+            served[path] = [json.loads(line) for line in cli(path, [
+                "--mode", "serve", "--bundle", bundle, "--wav", *wavs,
+                "--dump-nbest", "2", *extra]).splitlines()]
+
+        # one held-out evaluation of the best state, profiled
+        trainer, _ = make_trainer(
+            load_config(os.path.join(wd, "config.yaml")), wd, DEVICE)
+        params = trainer.ckpt.restore_best(map_location=DEVICE)["params"]
+        zero_counts()
+        res = {}
+        prof = device_busy(torch, lambda: res.update(
+            trainer.eval_heldout(params)))
+        counts["heldout_eval"] = all_counts()
+    cfg = trainer.cfg
+    m, bsz = cfg.meta, cfg.data.batch_size
+    evals = [r for r in recs if "heldout_wer_mean" in r]
+    # per draw: adaptation (K1 once, K2 adapt_steps times) + decode batches
+    eval_batches = draws * -(-min(eval_utts, utts - m.k_support) // bsz)
+    per_eval = {"k1": draws + eval_batches, "k2": draws * m.adapt_steps}
+    zero = {"k2b": 0, "k3": 0, "k3b": 0}
+    want = {
+        "meta_test_train": {
+            "k1": steps * 2 * m.tasks_per_batch
+            + steps // eval_every * per_eval["k1"],
+            "k2": steps * m.tasks_per_batch * (m.inner_steps + 1)
+            + steps // eval_every * per_eval["k2"], **zero},
+        "cli_adapt": {"k1": 1 + -(-(utts - m.k_support) // bsz),
+                      "k2": m.adapt_steps, **zero},
+        "cli_test": {"k1": -(-utts // bsz), "k2": 0, **zero},
+        "cli_export": {"k1": 0, "k2": 0, **zero},
+        "cli_serve_bundle": {"k1": 1, "k2": 0, **zero},
+        "cli_serve_bundle_config": {"k1": 1, "k2": 0, **zero},
+        "heldout_eval": {**per_eval, **zero}}
+    out = {"phase": "meta_test", "config": "configs/config3_fomaml.yaml",
+           "accents": 8, "heldout": "tango", "utts_per_accent": utts,
+           "steps": steps, "eval_every": eval_every,
+           "eval_support_draws": draws, "eval_max_utts": eval_utts,
+           "eval_decode_mode": "beam", "beam_size": cfg.train.beam_size,
+           "evaluations": [{k: r[k] for k in ("step", "heldout_tango_wer",
+                                              "heldout_tango_cer",
+                                              "heldout_tango_wer_std")}
+                           for r in evals],
+           "best_metrics": best_metrics, "adapt": adapt_results,
+           "adapt_hyp_sample": dumps[0], "test_avg_last_2": test_results,
+           "export": export, "served": served["cli_serve_bundle"],
+           "mode_seconds": seconds,
+           "profiled_eval_heldout": {
+               "scores": res, "decode_batches": eval_batches,
+               "wall_ms": prof[0],
+               "device_busy_ms": prof[1], "cuda_kernels": prof[2],
+               "top_kernels_ms": prof[3],
+               "device_busy_share": (None if prof[1] is None
+                                     else prof[1] / prof[0]),
+               "cuda_kernels_per_decode_batch": prof[2] / eval_batches,
+               "k1_per_decode_batch": 1},
+           "launches": counts, "launches_expected": want}
+    log(out)
+    if not (len(evals) == steps // eval_every and "heldout_wer_mean"
+            in best_metrics and all(math.isfinite(r["heldout_wer_mean"])
+                                    for r in evals)):
+        raise SystemExit("meta-train with held-out evaluation failed")
+    if not (len(dumps) == utts - m.k_support and all(
+            len(r["nbest"]) == 3 and r["nbest"][0]["hyp"] == r["hyp"]
+            and all(math.isfinite(h["score"]) for h in r["nbest"])
+            for r in dumps)):
+        raise SystemExit("adapt's 3-best hypothesis dump is malformed")
+    if export["mode"] != "beam" or served["cli_serve_bundle"] != \
+            served["cli_serve_bundle_config"]:
+        raise SystemExit("the bundle served without --config disagrees "
+                         "with the bundle served with it")
+    check_results(served["cli_serve_bundle"], 4, CharTokenizer.ascii_default())
+    if counts != want:
+        raise SystemExit(f"meta-test launch counts {counts}, want {want}")
+    return out
+
+
+def phase_mono_test(torch):
+    """The baseline's meta-test modes through the CLI at config1 width: a
+    few --algo no steps, then test (MonoASRTrainer.evaluate on the held-out
+    accent), transcribe (a decode-only meta trainer over every accent) and
+    transcribe of manifests without transcripts (hypotheses, no WER)."""
+    from metaasr_tpu_torch.config import load_config
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+
+    config_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "config1_mono_vgg_ctc.yaml")
+    steps, utts = 4, 24
+    seconds, counts, results = {}, {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        data, wd = os.path.join(d, "data"), os.path.join(d, "wd")
+        generate_dataset(data, accents=("alpha", "bravo"),
+                         utts_per_accent=utts, words_per_utt=(2, 4), seed=2)
+        bare = os.path.join(d, "bare")
+        runs = (("mono_cli_train", ["--mode", "train", "--algo", "no",
+                                "--config", config_path, "--data-dir", data,
+                                "--max-steps", str(steps),
+                                "-o", "data.heldout_accents=bravo",
+                                "-o", "train.eval_every=0"]),
+                ("mono_test", ["--mode", "test"]),
+                ("mono_transcribe", ["--mode", "transcribe"]),
+                ("mono_transcribe_bare", ["--mode", "transcribe",
+                                          "--data-dir", bare]))
+        for path, argv in runs:
+            if path == "mono_transcribe_bare":
+                # the same corpus with its transcripts removed (and the
+                # run's phone vocabulary beside it)
+                shutil.copytree(data, bare)
+                for accent in ("alpha", "bravo"):
+                    man = os.path.join(bare, f"{accent}.jsonl")
+                    with open(man) as f:
+                        recs = [json.loads(line) for line in f]
+                    with open(man, "w") as f:
+                        f.writelines(json.dumps({
+                            k: v for k, v in r.items()
+                            if k not in ("text", "phones")}) + "\n"
+                            for r in recs)
+            zero_counts()
+            _, seconds[path] = run_cli([*argv, "--workdir", wd])
+            counts[path] = lstm_counts()
+            if path != "mono_cli_train":
+                with open(os.path.join(
+                        wd, f"{argv[1]}_results.json")) as f:
+                    results[path] = json.load(f)
+        with open(os.path.join(wd, "hyps_alpha.jsonl")) as f:
+            bare_hyps = [json.loads(line) for line in f]
+        cfg = load_config(os.path.join(wd, "config.yaml"))
+    layers, bsz = 2 * cfg.model.blstm_layers, cfg.data.batch_size
+    batches = -(-utts // bsz)     # per accent: both have 24 utterances
+    want = {"mono_cli_train": {"k1": steps, "k2": steps, "k3": layers * steps,
+                           "k3b": layers * steps},
+            "mono_test": {"k1": batches, "k2": 0, "k3": layers * batches,
+                          "k3b": 0},
+            "mono_transcribe": {"k1": 2 * batches, "k2": 0,
+                                "k3": layers * 2 * batches, "k3b": 0}}
+    want["mono_transcribe_bare"] = want["mono_transcribe"]
+    out = {"phase": "mono_test", "config": "configs/config1_mono_vgg_ctc.yaml",
+           "train_accent": "alpha", "heldout": "bravo",
+           "utts_per_accent": utts,
+           "steps": steps, "results": results, "mode_seconds": seconds,
+           "bare_hyp_sample": bare_hyps[0], "launches": counts,
+           "launches_expected": want}
+    log(out)
+    test = results["mono_test"]
+    if not (list(test) == ["bravo"] and math.isfinite(test["bravo"]["wer"])
+            and set(results["mono_transcribe"]) == {"alpha", "bravo"}
+            and all("wer" in r for r in results["mono_transcribe"].values())):
+        raise SystemExit("the baseline's test / transcribe failed")
+    bare_res = results["mono_transcribe_bare"]
+    if not (set(bare_res) == {"alpha", "bravo"}
+            and all(set(r) == {"utts", "dump"} for r in bare_res.values())
+            and len(bare_hyps) == utts
+            and all(h["ref"] == "" for h in bare_hyps)):
+        raise SystemExit("transcribe without transcripts failed")
+    if counts != want:
+        raise SystemExit(f"baseline meta-test launch counts {counts}, "
+                         f"want {want}")
     return out
 
 
@@ -2092,22 +2378,36 @@ def main() -> int:
         k2b = timed(phase_ctc_hvp_kernel, torch, peaks)
     maml = timed(phase_maml_step, torch)
     maml_entry = timed(phase_maml_entry, torch)
+    meta_test = timed(phase_meta_test, torch)
+    mono_test = timed(phase_mono_test, torch)
+    log({"heldout_wer_random_init_trend": {
+        "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
+        "maml_config4": maml_entry["heldout_eval"]["scores"],
+        "note": "random init, 4 FOMAML / 2 MAML meta-steps on synthetic "
+                "accents: a trend, not a result"}})
     log({"phase_seconds": seconds})
+    # the meta-test paths (phases 13-15), by kernel
+    test_paths = {**meta_test["launches"],
+                  "maml_heldout_eval": maml_entry["heldout_eval"]["launches"],
+                  **mono_test["launches"]}
+    new_paths = lambda k: {path: c[k]  # noqa: E731
+                           for path, c in test_paths.items() if c[k]}
     maml_paths = lambda k: {  # noqa: E731
         "maml_step": maml["launches"][k],
         "maml_entry": maml_entry["launches"][k],
         "maml_entry_vgg_blstm": maml_entry["vgg_blstm_maml"]["launches"][k]}
     mono_paths = lambda k: {"mono_step": mono["launches"][k],  # noqa: E731
                             "mono_entry": mono_entry["launches"][k]}
+    lstm_paths = lambda k: {**mono_paths(k), **new_paths(k)}  # noqa: E731
     k1_paths = {"serving": serving["k1_launches"],
                 **{f"meta_step_{c['tasks']}x{c['shots']}": c["k1_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k1_launches"], **mono_paths("k1"),
-                **maml_paths("k1")}
+                **maml_paths("k1"), **new_paths("k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
-                **maml_paths("k2")}
+                **maml_paths("k2"), **new_paths("k2")}
     k2_task = k2["shapes"]["per_task"]
     k2b_shapes = k2b["shapes"]
     k2b_task = k2b_shapes["fused"]     # [16, 99, 65]: config4's per-task batch
@@ -2118,8 +2418,8 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": "metaasr_tpu_torch/csrc/lstm.cu",
         "replaces": f"metaasr_tpu/ops/lstm_pallas.py:{line}",
-        "launches": sum(mono_paths(key).values()),
-        "launches_by_path": mono_paths(key),
+        "launches": sum(lstm_paths(key).values()),
+        "launches_by_path": lstm_paths(key),
         "max_abs_err": max(e[err] for e in k3_shapes.values()),
         "shape_tbh": k3_main["shape_tbh"], "ms": k3_main[f"{tag}_ms"],
         "plain_ms": k3_main[f"plain_{tag}_ms"],

@@ -1,30 +1,48 @@
 """Command line for the port (counterpart of ``metaasr_tpu/cli.py``):
 
-    python -m metaasr_tpu_torch.cli --mode train \
+    python -m metaasr_tpu_torch.cli [--mode train] \
         --config configs/config3_fomaml.yaml --data-dir DIR --workdir WD \
         [--algo no|multi|fomaml|maml|reptile] [--max-steps N] [--seed N]
         [-o key=value]
-
+    python -m metaasr_tpu_torch.cli --mode adapt|test|transcribe --workdir WD \
+        [--use-best | --avg-last N] [--decode-mode greedy|beam]
+        [--dump-nbest K]
+    python -m metaasr_tpu_torch.cli --mode export --workdir WD \
+        [--export-dir DIR] [--export-buckets 8x48000,...]
+        [--export-weights-dtype float32|bfloat16]
+        [--export-decode auto|beam|greedy]
     python -m metaasr_tpu_torch.cli --mode serve --bundle DIR \
-        --config configs/config3_fomaml.yaml --wav a.wav [b.wav ...]
+        --wav a.wav [b.wav ...]
 
-``train`` trains on the accents of ``--data-dir`` (``<accent>.jsonl``
-manifests, e.g. from ``data.synthetic.generate_dataset``), checkpointing
-under ``<workdir>/ckpts``: meta-training for the algos fomaml, maml (full
-second order, e.g. ``configs/config4_maml.yaml``) and reptile, the
-single-accent baseline for ``no`` (e.g. ``configs/
-config1_mono_vgg_ctc.yaml``, the VGG-BLSTM CTC phone recognizer) and pooled
-multi-accent training for ``multi``, both with periodic dev evaluation
-(``train.eval_every``, ``data.dev_fraction``). ``serve`` transcribes with a
-bundle the JAX package exported (``--mode export``) or
-``serve.export.write_bundle`` wrote;
-``--config`` supplies what the bundle does not record (model dims and dtype,
-CMVN mode, beam options). Both run on CUDA unless ``--device cpu`` is given.
+``train`` (the default) trains on the accents of ``--data-dir``
+(``<accent>.jsonl`` manifests, e.g. from ``data.synthetic.generate_dataset``),
+checkpointing under ``<workdir>/ckpts``: meta-training for the algos fomaml,
+maml (full second order, e.g. ``configs/config4_maml.yaml``) and reptile,
+with held-out evaluation every ``train.eval_every`` steps; the
+single-accent baseline for ``no`` (e.g. ``configs/config1_mono_vgg_ctc.yaml``,
+the VGG-BLSTM CTC phone recognizer) and pooled multi-accent training for
+``multi``, both with periodic dev evaluation (``data.dev_fraction``).
+
+The other modes load the latest checkpoint (``--use-best``: the best;
+``--avg-last N``: the mean of the last N saved) and write
+``<workdir>/<mode>_results.json``: ``adapt`` adapts to each held-out accent
+and decodes the rest of it (``hyps_<accent>.jsonl``); ``test`` decodes the
+held-out accents without adaptation, or a baseline's dev set; ``transcribe``
+decodes every loaded accent without adaptation and reports WER where the
+manifests carry transcripts; ``export`` writes a serving bundle. These modes
+and a resumed ``train`` run under the workdir's recorded ``config.yaml``
+when ``--config`` is absent; only ``train`` writes it. ``serve``
+transcribes WAV files with a bundle: one the port wrote records its config;
+one the JAX package exported (``--mode export``) needs ``--config`` for the
+model dims, CMVN mode and beam options. Every mode runs on CUDA unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import os
 
@@ -138,15 +156,26 @@ def make_trainer(cfg: Config, workdir: str, device=None):
 
 def main(argv=None):
     p = argparse.ArgumentParser("metaasr_tpu_torch")
-    p.add_argument("--mode", choices=["train", "serve"], default="serve")
+    p.add_argument("--mode", default="train",
+                   choices=["train", "adapt", "test", "transcribe", "export",
+                            "serve"])
     p.add_argument("--config", type=str, default=None,
-                   help="the run's YAML config (train: <workdir>/config.yaml "
-                   "when it exists, else Config())")
+                   help="the run's YAML config (default: "
+                   "<workdir>/config.yaml when it exists, else Config(); "
+                   "serve: only for bundles that do not record their config)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                    "PyTorch path)")
     p.add_argument("-o", "--override", action="append", default=[],
                    help="dotted config override key=value")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="autograd anomaly detection: stop at the backward op "
+                   "that produces a NaN (forward ops are not checked)")
+    p.add_argument("--profile", type=str, default=None,
+                   help="train: write a torch.profiler Chrome trace into "
+                   "this directory")
+    p.add_argument("--mesh-tasks", type=int, default=0,
+                   help="not ported yet (ROADMAP.md): refused")
     t = p.add_argument_group("train")
     t.add_argument("--algo",
                    choices=["no", "multi", "fomaml", "maml", "reptile"],
@@ -155,6 +184,30 @@ def main(argv=None):
     t.add_argument("--data-dir", type=str, default=None)
     t.add_argument("--max-steps", type=int, default=None)
     t.add_argument("--seed", type=int, default=None)
+    d = p.add_argument_group("adapt / test / transcribe / export")
+    d.add_argument("--use-best", action="store_true",
+                   help="load the best checkpoint instead of the latest")
+    d.add_argument("--avg-last", type=int, default=0,
+                   help="average the parameters of the last N checkpoints")
+    d.add_argument("--decode-mode", choices=["greedy", "beam"],
+                   default="greedy")
+    d.add_argument("--dump-nbest", type=int, default=1,
+                   help="hypotheses (with scores) per utterance in the "
+                   "hyps_*.jsonl dumps (beam) and in serve's output")
+    e = p.add_argument_group("export")
+    e.add_argument("--export-dir", type=str, default=None,
+                   help="bundle directory (default <workdir>/export)")
+    e.add_argument("--export-buckets", type=str, default="8x48000",
+                   help="comma-separated BATCHxWIDTH serving shapes "
+                   "(width in audio samples)")
+    e.add_argument("--export-weights-dtype", choices=["float32", "bfloat16"],
+                   default="float32")
+    e.add_argument("--export-decode", choices=["auto", "beam", "greedy"],
+                   default="auto",
+                   help="auto: beam for the transformer, greedy otherwise")
+    e.add_argument("--export-platforms", type=str, default=None,
+                   help="StableHLO targets of the JAX package's bundles; the "
+                   "port writes no programs: refused")
     s = p.add_argument_group("serve")
     s.add_argument("--bundle", type=str, help="serving bundle directory")
     s.add_argument("--wav", nargs="+", help="WAV files to transcribe")
@@ -163,18 +216,45 @@ def main(argv=None):
                    "Flax layout)")
     s.add_argument("--serve-out", type=str, default=None,
                    help="also write one JSONL record per file here")
-    s.add_argument("--dump-nbest", type=int, default=1,
-                   help="hypotheses (with scores) per utterance")
     args = p.parse_args(argv)
 
-    overrides = dict(_parse_override(kv) for kv in args.override)
-    if args.mode == "train":
-        return _train(args, overrides)
-    if not args.bundle or not args.wav:
-        p.error("--mode serve needs --bundle DIR and --wav FILE [FILE ...]")
-    from metaasr_tpu_torch.serve.export import ServingDecoder, load_bundle_params
+    if args.mesh_tasks:
+        raise SystemExit("--mesh-tasks: the task mesh is not ported yet "
+                         "(ROADMAP.md, port queue: 'More than one GPU')")
+    if args.export_platforms is not None:
+        raise SystemExit(
+            "--export-platforms names the StableHLO targets of the JAX "
+            "package's bundles; the port's bundles hold no programs (its "
+            "own modules serve them): drop the flag")
+    if args.use_best and args.avg_last:
+        raise SystemExit(
+            "--use-best and --avg-last are mutually exclusive: averaging the "
+            "last N checkpoints would replace the restored best parameters; "
+            "pick one")
+    if args.debug_nans:
+        from metaasr_tpu_torch.utils.profiling import nan_check
 
-    cfg = load_config(args.config, overrides)
+        nan_check(True)
+    overrides = dict(_parse_override(kv) for kv in args.override)
+    if args.mode == "serve":
+        if not args.bundle or not args.wav:
+            p.error("--mode serve needs --bundle DIR and --wav FILE "
+                    "[FILE ...]")
+        return _serve(args, overrides)
+    cfg = _run_config(args, overrides)
+    if args.mode == "train":
+        return _train(args, cfg)
+    return _meta_test(args, cfg)
+
+
+def _serve(args, overrides: dict) -> int:
+    from metaasr_tpu_torch.serve.export import (
+        ServingDecoder,
+        load_bundle_params,
+    )
+
+    cfg = (load_config(args.config, overrides)
+           if args.config or overrides else None)
     dec = ServingDecoder(args.bundle, cfg, device=args.device)
     params = (load_bundle_params(args.serve_params)
               if args.serve_params else None)
@@ -190,10 +270,10 @@ def main(argv=None):
     return 0
 
 
-def _train(args, overrides: dict) -> int:
-    # a resumed run defaults to its own recorded config, as the reference
-    # does: Config() defaults saved over <workdir>/config.yaml would resume
-    # the checkpoint under another model
+def _run_config(args, overrides: dict) -> Config:
+    # a resumed run and the meta-test modes default to the run's own
+    # recorded config, as the reference does: Config() defaults would load
+    # the checkpoint into another model
     recorded = os.path.join(args.workdir, "config.yaml")
     if args.config is None and os.path.exists(recorded):
         args.config = recorded
@@ -204,16 +284,119 @@ def _train(args, overrides: dict) -> int:
         overrides["data.seed"] = args.seed
     if args.data_dir:
         overrides["data.data_dir"] = args.data_dir
-    cfg = load_config(args.config, overrides)
+    return load_config(args.config, overrides)
+
+
+def _train(args, cfg: Config) -> int:
     os.makedirs(args.workdir, exist_ok=True)
     save_config(cfg, os.path.join(args.workdir, "config.yaml"))
     trainer, _ = make_trainer(cfg, args.workdir, device=args.device)
+    ctx = contextlib.nullcontext()
+    if args.profile:
+        from metaasr_tpu_torch.utils.profiling import trace
+
+        ctx = trace(args.profile)
     # --max-steps bounds this invocation; the recorded config keeps its own
-    if cfg.meta.algo in ("no", "multi"):
-        state = trainer.train(max_steps=args.max_steps)
-    else:
-        state = trainer.meta_train(max_steps=args.max_steps)
+    with ctx:
+        if cfg.meta.algo in ("no", "multi"):
+            state = trainer.train(max_steps=args.max_steps)
+        else:
+            state = trainer.meta_train(max_steps=args.max_steps)
     print(json.dumps({"workdir": args.workdir, "step": state["step"]}))
+    return 0
+
+
+def _meta_test(args, cfg: Config) -> int:
+    """adapt / test / transcribe / export from the run's checkpoint."""
+    from metaasr_tpu_torch.meta.maml import split_lr
+    from metaasr_tpu_torch.train.checkpoint import average_checkpoints
+    from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
+
+    meta = cfg.meta.algo in ("fomaml", "maml", "reptile")
+    if args.mode == "adapt" and not meta:
+        raise SystemExit(
+            f"--mode adapt adapts a meta-trained model; algo "
+            f"{cfg.meta.algo!r} trains a baseline, which has no k-shot "
+            "adaptation: use --mode test or transcribe")
+    trainer, tok = make_trainer(cfg, args.workdir, device=args.device)
+    ckpts = trainer.ckpt
+    if args.use_best:
+        state = ckpts.restore_best(map_location=trainer.device)
+        if state is None:
+            raise SystemExit(
+                f"no best checkpoint under {ckpts.ckpt_dir}/best (best is "
+                "saved at the periodic evaluations: train with "
+                "train.eval_every set)")
+    else:
+        state, step = ckpts.restore(map_location=trainer.device)
+        if step < 0:
+            raise SystemExit(f"no checkpoint found under {ckpts.ckpt_dir}")
+    params = state["params"]
+    if args.avg_last:
+        params = average_checkpoints(ckpts, last_n=args.avg_last,
+                                     map_location=trainer.device)
+    if args.mode == "export":
+        from metaasr_tpu_torch.serve.export import write_bundle
+        from metaasr_tpu_torch.weights import params_to_flax
+
+        out_dir = args.export_dir or os.path.join(args.workdir, "export")
+        buckets = [tuple(int(v) for v in b.split("x"))
+                   for b in args.export_buckets.split(",")]
+        manifest = write_bundle(
+            out_dir, cfg, params_to_flax(split_lr(params)[0],
+                                         cfg.model.num_heads),
+            tok, buckets, weights_dtype=args.export_weights_dtype,
+            mode=None if args.export_decode == "auto" else args.export_decode)
+        print(json.dumps({"export_dir": out_dir, "files": manifest["files"],
+                          "mode": manifest["mode"],
+                          "platforms": manifest["platforms"]}, indent=2))
+        return 0
+
+    def dump(name: str) -> str:
+        return os.path.join(args.workdir, f"hyps_{name}.jsonl")
+
+    decode = dict(mode=args.decode_mode, dump_nbest=args.dump_nbest)
+    results = {}
+    if args.mode == "adapt":
+        for name, ds in trainer.heldout_datasets.items():
+            adapted, test_idx = trainer.meta_adapt(params, ds)
+            results[name] = trainer.decode(adapted, ds, test_idx,
+                                           dump_path=dump(name), **decode)
+    elif args.mode == "transcribe":
+        # every loaded accent, zero-shot; manifests without transcripts
+        # decode too (their refs are empty and no WER is reported)
+        targets = dict(trainer.accent_datasets) if meta else {}
+        targets.update(trainer.heldout_datasets)
+        decoder = trainer
+        if not meta:
+            for i, ds in enumerate(trainer.train_datasets):
+                targets.setdefault(ds.accent or f"accent{i}", ds)
+            # a decode-only meta trainer over the baseline's model
+            dcfg = copy.deepcopy(cfg)
+            dcfg.meta.algo = "fomaml"
+            decoder = MetaASRTrainer(dcfg, trainer.task, dict(targets), {},
+                                     tok, os.path.join(args.workdir,
+                                                       "_decode"),
+                                     device=trainer.device)
+        for name, ds in targets.items():
+            scores = decoder.decode(params, ds, max_utts=len(ds),
+                                    dump_path=dump(name), **decode)
+            results[name] = {"utts": len(ds), "dump": dump(name)}
+            if any(ds.transcript(i) for i in range(len(ds))):
+                results[name].update(scores)
+    else:   # test: decode without adaptation
+        targets = trainer.heldout_datasets
+        dev = getattr(trainer, "dev_dataset", None)
+        if not targets and dev:
+            targets = {"dev": dev}
+        for name, ds in targets.items():
+            results[name] = (trainer.decode(params, ds, dump_path=dump(name),
+                                            **decode)
+                             if meta else trainer.evaluate(params, ds))
+    out = os.path.join(args.workdir, f"{args.mode}_results.json")
+    with open(out, "w") as f:
+        json.dump(results, f, indent=2)
+    print(json.dumps(results, indent=2))
     return 0
 
 

@@ -319,7 +319,10 @@ static int launch(int tangent, const Params& p, int B, int K, int smem,
   int dev = 0;
   cudaGetDevice(&dev);
   int* seen = dev < 16 ? &opted[dev][tangent][p.streamed][K - 1] : nullptr;
-  if (smem > 48 * 1024 && (!seen || smem > *seen)) {
+  // opt in whatever the size: the 48 KB a block gets without it covers
+  // static and dynamic shared memory together, so a dynamic size just
+  // under 48 KB (K2 at [*, 63, 65]: 49,140 B) already needs it
+  if (!seen || smem > *seen) {
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;

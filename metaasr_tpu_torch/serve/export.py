@@ -1,29 +1,38 @@
-"""Serving bundles: read them and transcribe (counterpart of the reader side
-of ``metaasr_tpu/serve/export.py``).
+"""Serving bundles: write them, read them and transcribe (counterpart of
+``metaasr_tpu/serve/export.py``).
 
 A bundle directory holds ``params.npz`` (flat ``a/b/c`` keys; bf16 leaves
 stored as uint16 bit patterns listed under ``__bf16_keys__``),
 ``tokenizer.json`` and ``meta.json``. The JAX package also writes one
 StableHLO program per bucket (``*.jexp``); the port ignores those and runs
-its own modules, the fbank kernel included. ``meta.json`` does not record
-model dims, dtype, CMVN mode or most beam options, so
-:class:`ServingDecoder` takes the run's ``Config`` for those.
+its own modules, the fbank kernel included.
 
 :func:`write_bundle` writes the same non-program files, so a bundle the
-port writes loads in either package's reader.
+port writes loads in either package's reader. Its ``meta.json`` also
+records the model dims and dtype (``model``), the front-end (``frontend``:
+CMVN mode, mel bins, sample rate; global CMVN statistics are copied into
+the bundle) and every beam option, so :class:`ServingDecoder` needs no
+config for it. The JAX package's bundles keep those in their programs, so
+they are served with the run's ``Config`` (``--config``).
+
+:func:`decode_features` and :func:`read_decoded` are the decode and the
+read-back that serving and the meta trainer's ``decode`` share.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
+import shutil
 import threading
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
+from metaasr_tpu_torch.config import Config
 from metaasr_tpu_torch.data.tokenizer import _BaseTokenizer
 from metaasr_tpu_torch.decode.beam_search import (
     LM_FUSION_TODO,
@@ -74,6 +83,27 @@ def load_bundle_params(path: str) -> dict:
     return out
 
 
+def beam_config_from_train(cfg) -> BeamSearchConfig:
+    """The joint beam search's options from ``cfg.train`` (max_len from
+    ``cfg.data.max_tokens``), as the reference's decode and export build
+    them."""
+    t = cfg.train
+    if t.lm_weight != 0.0 or t.lm_ckpt:
+        raise NotImplementedError(LM_FUSION_TODO)
+    return BeamSearchConfig(
+        beam_size=t.beam_size, max_len=cfg.data.max_tokens,
+        ctc_weight=t.decode_ctc_weight, length_penalty=t.length_penalty,
+        ctc_candidates=t.ctc_candidates, normalize_final=t.normalize_final,
+        coverage_weight=t.coverage_weight, coverage_tau=t.coverage_tau,
+        min_len=t.beam_min_len)
+
+
+# runtime backends, chosen by whoever serves (ASRTask.require_full_autodiff
+# switches lstm_impl for MAML training): not part of the recorded model
+_UNRECORDED_MODEL_KEYS = ("ctc_impl", "lstm_impl")
+_GLOBAL_CMVN_FILE = "cmvn_stats.json"
+
+
 def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
                  buckets: Sequence[tuple[int, int]],
                  weights_dtype: str = "float32",
@@ -88,6 +118,7 @@ def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
     if weights_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"weights_dtype must be float32 or bfloat16, "
                          f"got {weights_dtype!r}")
+    beam = beam_config_from_train(cfg)
     os.makedirs(out_dir, exist_ok=True)
     arrays, bf16_keys = {}, []
     for key, a in flatten_tree(params).items():
@@ -98,7 +129,13 @@ def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
     arrays["__bf16_keys__"] = np.asarray(bf16_keys, dtype=np.str_)
     np.savez(os.path.join(out_dir, "params.npz"), **arrays)
     tokenizer.save(os.path.join(out_dir, "tokenizer.json"))
-    t = cfg.train
+    model = {k: v for k, v in dataclasses.asdict(cfg.model).items()
+             if k not in _UNRECORDED_MODEL_KEYS}
+    frontend = dataclasses.asdict(cfg.frontend)
+    if cfg.frontend.cmvn == "global":
+        shutil.copyfile(cfg.frontend.cmvn_stats_path,
+                        os.path.join(out_dir, _GLOBAL_CMVN_FILE))
+        frontend["cmvn_stats_path"] = _GLOBAL_CMVN_FILE
     manifest = {
         "version": BUNDLE_VERSION,
         "buckets": [list(b) for b in buckets],
@@ -114,12 +151,39 @@ def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
         "sample_rate": cfg.frontend.sample_rate,
         "num_mel_bins": cfg.frontend.num_mel_bins,
         "has_lm": False,
-        "beam": {"beam_size": t.beam_size, "max_len": cfg.data.max_tokens,
-                 "ctc_weight": t.decode_ctc_weight, "lm_weight": 0.0},
+        "beam": dataclasses.asdict(beam),
+        "model": model,
+        "frontend": frontend,
     }
     with open(os.path.join(out_dir, "meta.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     return manifest
+
+
+def bundle_config(bundle_dir: str, meta: dict, cfg=None) -> Config:
+    """The config a bundle serves under: ``cfg`` (or, for a bundle that
+    records its model, the defaults) with every value the bundle records
+    laid over it."""
+    if cfg is None:
+        if "model" not in meta:
+            raise ValueError(
+                f"the bundle {bundle_dir} does not record its model dims "
+                "(the JAX package's bundles, and the port's written before "
+                "they did, keep them in their programs): serve it with its "
+                "run's config (--config, or ServingDecoder(bundle, cfg))")
+        cfg = Config()
+    cfg = copy.deepcopy(cfg)
+    for section in ("model", "frontend"):
+        for k, v in meta.get(section, {}).items():
+            setattr(getattr(cfg, section), k,
+                    tuple(v) if isinstance(v, list) else v)
+    f = cfg.frontend
+    if "frontend" in meta and f.cmvn == "global":
+        f.cmvn_stats_path = os.path.join(bundle_dir, f.cmvn_stats_path)
+    cfg.model.vocab_size = meta["vocab_size"]
+    f.num_mel_bins = meta["num_mel_bins"]
+    f.sample_rate = meta["sample_rate"]
+    return cfg
 
 
 def _check_mode(mode: str, arch: str) -> None:
@@ -138,10 +202,12 @@ class ServingDecoder:
     (or greedy CTC for a greedy bundle; the VGG-BLSTM's recurrences go
     through K3) and detokenizes. ``params`` hot-swaps
     an adapted Flax-layout tree; the converted model is cached for the last
-    tree object passed.
+    tree object passed. ``cfg``, the run's config, is needed only for a
+    bundle that does not record its own (the JAX package's); what a bundle
+    records overrides it.
     """
 
-    def __init__(self, bundle_dir: str, cfg, device=None):
+    def __init__(self, bundle_dir: str, cfg=None, device=None):
         with open(os.path.join(bundle_dir, "meta.json")) as f:
             self.meta = json.load(f)
         if self.meta["version"] not in COMPATIBLE_BUNDLE_VERSIONS:
@@ -153,10 +219,7 @@ class ServingDecoder:
             raise NotImplementedError(LM_FUSION_TODO)
         self.tokenizer = _BaseTokenizer.load(
             os.path.join(bundle_dir, "tokenizer.json"))
-        cfg = copy.deepcopy(cfg)
-        cfg.model.vocab_size = self.meta["vocab_size"]
-        cfg.frontend.num_mel_bins = self.meta["num_mel_bins"]
-        cfg.frontend.sample_rate = self.meta["sample_rate"]
+        cfg = bundle_config(bundle_dir, self.meta, cfg)
         self.cfg = cfg
         self.task = ASRTask(cfg, self.meta["sos_eos_id"], device=device)
         self.device = self.task.device
@@ -164,14 +227,9 @@ class ServingDecoder:
         self.from_feats = self.meta["from_feats"]
         self.mode = self.meta["mode"]
         _check_mode(self.mode, cfg.model.arch)
-        t = cfg.train
-        self.beam_cfg = BeamSearchConfig(
-            beam_size=beam["beam_size"], max_len=beam["max_len"],
-            ctc_weight=beam["ctc_weight"], length_penalty=t.length_penalty,
-            ctc_candidates=t.ctc_candidates,
-            normalize_final=t.normalize_final,
-            coverage_weight=t.coverage_weight, coverage_tau=t.coverage_tau,
-            min_len=t.beam_min_len)
+        # the options a bundle does not record come from the config
+        self.beam_cfg = dataclasses.replace(beam_config_from_train(cfg),
+                                            **beam)
         self.buckets = sorted(tuple(int(v) for v in b)
                               for b in self.meta["buckets"])
         self.model = self._build_model(load_bundle_params(
@@ -266,35 +324,49 @@ class ServingDecoder:
                 feats, feat_lens = x, lens
             else:
                 feats, feat_lens = self.task.features(x, lens)
-            if self.mode == "greedy":
-                packed, out_lens = self.task._greedy_from_feats(
-                    model, feats, feat_lens)
-                out = {"tokens": packed[:, None, :],
-                       "lengths": out_lens[:, None],
-                       "scores": torch.zeros_like(out_lens,
-                                                  dtype=torch.float32)[:, None]}
-            else:
-                out = beam_search_transformer(model, feats, feat_lens,
-                                              self.task.sos_eos_id,
-                                              self.beam_cfg)
+            out = decode_features(self.task, model, feats, feat_lens,
+                                  self.mode, self.beam_cfg)
         return out, n
 
     def _dispatch(self, xs, params):
         return self._dispatch_staged(self._stage(xs, params))
 
     def _read(self, out, n: int, nbest: int):
-        toks = out["tokens"].cpu().numpy()
-        lengths = out["lengths"].cpu().numpy()
-        scores = out["scores"].float().cpu().numpy()
-        results = []
-        k = min(max(1, nbest), toks.shape[1])
-        for i in range(n):
-            r = {"text": self.tokenizer.decode(toks[i, 0, : lengths[i, 0]]),
-                 "score": float(scores[i, 0])}
-            if k > 1:
-                r["nbest"] = [
-                    {"hyp": self.tokenizer.decode(toks[i, j, : lengths[i, j]]),
-                     "score": float(scores[i, j])} for j in range(k)]
-            results.append(r)
-        return results
+        return read_decoded(out, n, self.tokenizer, nbest)
 
+
+def decode_features(task: ASRTask, model, feats, feat_lens, mode: str,
+                    beam_cfg: BeamSearchConfig) -> dict:
+    """Greedy CTC (``mode="greedy"``) or the joint beam search of ``model``
+    on features -> {"tokens" [B, K, L], "lengths" [B, K], "scores" [B, K]}
+    on the device, K = 1 for greedy (scores 0)."""
+    with torch.inference_mode():
+        if mode == "greedy":
+            packed, out_lens = task._greedy_from_feats(model, feats,
+                                                       feat_lens)
+            return {"tokens": packed[:, None, :],
+                    "lengths": out_lens[:, None],
+                    "scores": torch.zeros_like(out_lens,
+                                               dtype=torch.float32)[:, None]}
+        return beam_search_transformer(model, feats, feat_lens,
+                                       task.sos_eos_id, beam_cfg)
+
+
+def read_decoded(out: dict, n: int, tokenizer, nbest: int = 1) -> list[dict]:
+    """Read back the first ``n`` rows of :func:`decode_features`' outputs ->
+    one {"text", "score"} dict per row, plus "nbest": [{"hyp", "score"},
+    ...] when ``nbest`` > 1."""
+    toks = out["tokens"].cpu().numpy()
+    lengths = out["lengths"].cpu().numpy()
+    scores = out["scores"].float().cpu().numpy()
+    results = []
+    k = min(max(1, nbest), toks.shape[1])
+    for i in range(n):
+        r = {"text": tokenizer.decode(toks[i, 0, : lengths[i, 0]]),
+             "score": float(scores[i, 0])}
+        if k > 1:
+            r["nbest"] = [
+                {"hyp": tokenizer.decode(toks[i, j, : lengths[i, j]]),
+                 "score": float(scores[i, j])} for j in range(k)]
+        results.append(r)
+    return results

@@ -7,9 +7,10 @@ are kept, and ``best/state.pt`` holds the best-by-metric state; evaluation
 metrics given to ``save`` go beside it as ``step_<N>.metrics.json``
 (``best/metrics.json``). Writes go to
 a temporary file first and are renamed into place, so a reader never sees
-half a file. ``save_params_npz``/``load_params_npz`` exchange parameters in
-the reference's flat Flax layout (``weights.params_to_flax``), the format
-``--serve-params`` reads.
+half a file. ``average_checkpoints`` averages the saved parameters of
+several steps (``--avg-last``). ``save_params_npz``/``load_params_npz``
+exchange parameters in the reference's flat Flax layout
+(``weights.params_to_flax``), the format ``--serve-params`` reads.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from metaasr_tpu_torch.utils.tree import flatten, unflatten_like
 from metaasr_tpu_torch.weights import flatten_tree, params_to_flax, unflatten
 
 _STEP = re.compile(r"step_(\d+)\.pt$")
@@ -93,6 +95,31 @@ class CheckpointManager:
             return None
         return torch.load(self._best, map_location=map_location,
                           weights_only=True)
+
+
+def average_checkpoints(mgr: CheckpointManager, steps: list[int] | None = None,
+                        last_n: int = 0, map_location=None) -> Any:
+    """The mean of the ``params`` of the saved steps ``steps`` (default: the
+    last ``last_n``, or every saved step when 0), summed in float64 and cast
+    to float32, on ``map_location`` (default the CPU); the tree keeps its
+    structure (a Meta-SGD tree {"model", "inner_lr"} is averaged whole).
+    Reads what is on disk: with fewer than ``last_n`` steps kept, it
+    averages those there are."""
+    avail = mgr.all_steps()
+    if steps is None:
+        steps = avail[-last_n:] if last_n else avail
+    if not steps:
+        raise ValueError(f"no checkpoints to average under {mgr.ckpt_dir}")
+    acc = None
+    for step in steps:
+        state, _ = mgr.restore(step=step, map_location="cpu")
+        flat = {k: v.to(torch.float64)
+                for k, v in flatten(state["params"]).items()}
+        acc = flat if acc is None else {k: acc[k] + v
+                                        for k, v in flat.items()}
+    return unflatten_like(state["params"], {
+        k: (v / len(steps)).to(torch.float32).to(map_location or "cpu")
+        for k, v in acc.items()})
 
 
 def save_params_npz(path: str, params: dict, num_heads: int) -> None:

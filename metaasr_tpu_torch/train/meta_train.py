@@ -1,4 +1,5 @@
-"""Meta-training: ``meta_train`` and ``meta_adapt`` (counterpart of
+"""Meta-training and the meta-test: ``meta_train``, ``meta_adapt``,
+``decode`` and ``eval_heldout`` (counterpart of
 ``metaasr_tpu/train/meta_train.py``).
 
 - ``meta_train``: the outer loop over meta-batches of accent tasks. One
@@ -6,23 +7,34 @@
   set, the query loss and its backward (FOMAML; under MAML that backward
   also runs through the inner gradients), or the inner steps on support +
   query and the parameter delta (Reptile); then the outer Adam update of
-  the mean over tasks.
+  the mean over tasks. Every ``train.eval_every`` steps, when there are
+  held-out accents, ``eval_heldout`` scores the parameters; the best by
+  ``heldout_wer_mean`` is saved as ``best`` and ``train.early_stop_patience``
+  evaluations without a gain stop the run. Otherwise a checkpoint is saved
+  every ``train.ckpt_every`` steps.
 - ``meta_adapt``: a fresh copy of the meta parameters and ``adapt_steps``
   inner SGD steps on a held-out accent's k-shot support set; its result
-  feeds ``ServingDecoder``'s hot-swapped parameters.
+  feeds ``decode`` and ``ServingDecoder``'s hot-swapped parameters.
+- ``decode``: greedy CTC or the joint CTC/attention beam search over a
+  dataset -> WER/CER, optionally dumping hypotheses (and n-best lists) as
+  JSONL. The beam search and its read-back are serving's own
+  (``serve/export.py::decode_features``, ``read_decoded``).
+- ``eval_heldout``: ``meta_adapt`` + ``decode`` on every held-out accent,
+  averaged over ``train.eval_support_draws`` support draws: the headline
+  metric, WER after k-shot adaptation on an unseen accent.
 
 The train state is a dict {params, opt_state, step, seed, best_metric,
-stale_evals}; batches are drawn by a producer thread and moved to the
-device on the main thread. Not in this slice (ROADMAP.md): the
-device-resident corpus (``data.resident``) and the mesh paths, the meta
-trainer's held-out evaluation (``decode``, ``eval_heldout``;
-``train.eval_every`` is not acted on here, checkpoints follow
-``train.ckpt_every``) and ``average_checkpoints``. The baseline trainers
-with their dev evaluation are in ``train/mono.py``.
+stale_evals}; the best-metric tracking lives in the checkpointed state, so
+a resumed run never overwrites ``best`` with a worse model. Batches are
+drawn by a producer thread and moved to the device on the main thread. Not
+in this slice (ROADMAP.md): the device-resident corpus (``data.resident``)
+and the mesh paths. The baseline trainers with their dev evaluation are in
+``train/mono.py``.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import queue
 import threading
@@ -32,7 +44,14 @@ import numpy as np
 import torch
 
 from metaasr_tpu_torch.config import Config
-from metaasr_tpu_torch.data.sampler import TaskSampler, support_query_split
+from metaasr_tpu_torch.data.sampler import (
+    DEFAULT_SAMPLE_BUCKETS,
+    TaskSampler,
+    collate,
+    item_samples,
+    support_query_split,
+)
+from metaasr_tpu_torch.decode.greedy import greedy_to_texts
 from metaasr_tpu_torch.device import resolve_device
 from metaasr_tpu_torch.meta.maml import (
     MetaAlgoConfig,
@@ -44,13 +63,20 @@ from metaasr_tpu_torch.meta.maml import (
     split_lr,
     wrap_lr,
 )
+from metaasr_tpu_torch.serve.export import (
+    beam_config_from_train,
+    decode_features,
+    read_decoded,
+)
 from metaasr_tpu_torch.train.checkpoint import CheckpointManager
 from metaasr_tpu_torch.train.logging import MetricLogger
+from metaasr_tpu_torch.train.metrics import compute_cer, compute_wer
 from metaasr_tpu_torch.train.optimizer import (
     apply_updates,
     global_norm,
     make_optimizer,
 )
+from metaasr_tpu_torch.utils.padding import bucket_length
 
 
 def algo_config(cfg: Config) -> MetaAlgoConfig:
@@ -143,6 +169,7 @@ class MetaASRTrainer:
         make_grads = reptile_grads if m.algo == "reptile" else maml_grads
         self._grad_fn = make_grads(task.loss_fn, algo_config(cfg),
                                    preprocess_fn=task.preprocess)
+        self._decode_model = None   # built at the first beam decode
 
     def _num_samples_cap(self) -> int:
         return self.cfg.data.max_frames * 160 + 240   # frames -> samples
@@ -223,7 +250,21 @@ class MetaASRTrainer:
                 out["utts_per_sec"] = utts / max(time.time() - t0, 1e-6)
                 self.logger.log(step, out)
                 t0, utts = time.time(), 0
-            if step % cfg.ckpt_every == 0:
+            if (cfg.eval_every > 0 and step % cfg.eval_every == 0
+                    and self.heldout_datasets):
+                scores = self.eval_heldout(state["params"])
+                self.logger.log(step, scores)
+                cur = scores["heldout_wer_mean"]
+                is_best = cur < state["best_metric"]
+                stale = 0 if is_best else state["stale_evals"] + 1
+                state = dict(state, stale_evals=stale,
+                             best_metric=min(cur, state["best_metric"]))
+                self.ckpt.save(step, state, scores, is_best=is_best)
+                if cfg.early_stop_patience and \
+                        stale >= cfg.early_stop_patience:
+                    self.logger.log(step, {"early_stop": 1.0})
+                    break
+            elif step % cfg.ckpt_every == 0:
                 self.ckpt.save(step, state)
         self.ckpt.save(state["step"], state)
         return state
@@ -254,3 +295,117 @@ class MetaASRTrainer:
         adapted, _ = inner(params, batch, fold_in(seed, 1))
         model = split_lr(adapted)[0]
         return {k: v.detach() for k, v in model.items()}, test_idx
+
+    # ---------- the meta-test: decode and held-out evaluation ----------
+
+    def decode(self, params, dataset, indices=None, max_utts: int = 100,
+               mode: str = "greedy", dump_path: str | None = None,
+               dump_nbest: int = 1) -> dict:
+        """Decode ``dataset`` (or its ``indices``, at most ``max_utts``) ->
+        {"wer", "cer"}.
+
+        ``mode="greedy"``: greedy CTC. ``mode="beam"``: the batched joint
+        CTC/attention beam search (transformer only; a VGG-BLSTM decodes
+        greedily). Batches of ``data.batch_size`` pad to the smallest of the
+        reference's waveform buckets (1, 2, 4, 8, 16 s) that fits, and every
+        batch is dispatched before any result is read back. ``dump_path``
+        writes one JSONL record {"hyp", "ref"} per utterance; beam mode adds
+        the top hypothesis' "score", and ``dump_nbest`` > 1 an "nbest" list
+        of {"hyp", "score"} (the search's joint scores, after the final
+        ranking)."""
+        params = split_lr(params)[0]   # zero-shot decode of a Meta-SGD tree
+        indices = list(indices if indices is not None
+                       else range(len(dataset)))[:max_utts]
+        buckets = tuple(sorted({bucket_length(item_samples(dataset[j]),
+                                              DEFAULT_SAMPLE_BUCKETS)
+                                for j in indices}))
+        use_beam = mode == "beam" and self.task.arch == "transformer"
+        model = self._model_with(params) if use_beam else None
+        bsz = self.cfg.data.batch_size
+        pending, refs = [], []     # device outputs, read after the loop
+        for i in range(0, len(indices), bsz):
+            chunk = [dataset[j] for j in indices[i: i + bsz]]
+            smax = bucket_length(max(item_samples(it) for it in chunk),
+                                 buckets)
+            batch = collate(chunk, smax, self.cfg.data.max_tokens)
+            refs.extend(batch["texts"])
+            batch = to_device(batch, self.device)
+            pending.append(self._beam_dispatch_batch(model, batch)
+                           if use_beam
+                           else self.task.greedy_batch(params, batch))
+        hyps, details = [], []      # details: per-utterance beam extras
+        for out in pending:
+            if use_beam:
+                texts, extras = self._beam_read(out, nbest=dump_nbest)
+                hyps.extend(texts)
+                details.extend(extras)
+            else:
+                hyps.extend(greedy_to_texts(*out, self.tokenizer))
+        if dump_path:
+            with open(dump_path, "w") as f:
+                for i, (h, r) in enumerate(zip(hyps, refs)):
+                    rec = {"hyp": h, "ref": r}
+                    if i < len(details):
+                        rec.update(details[i])
+                    f.write(json.dumps(rec) + "\n")
+        return {"wer": compute_wer(hyps, refs), "cer": compute_cer(hyps, refs)}
+
+    def _model_with(self, params: dict):
+        """The trainer's decode module holding ``params`` (the beam search
+        calls the model's methods, so it runs on a module, not through
+        ``functional_call``)."""
+        if self._decode_model is None:
+            self._decode_model = self.task.build_model()
+        self._decode_model.load_state_dict(params)
+        return self._decode_model
+
+    def _beam_dispatch_batch(self, model, batch: dict) -> dict:
+        """The beam search on one device batch (features from ``feats`` or
+        from K1 + CMVN on the audio) -> serving's packed outputs."""
+        with torch.inference_mode():
+            if "feats" in batch:
+                feats, feat_lens = batch["feats"], batch["feat_lens"]
+            else:
+                feats, feat_lens = self.task.features(
+                    batch["audio"], batch["audio_lens"],
+                    batch.get("cmvn_mean"), batch.get("cmvn_std"))
+            return decode_features(self.task, model, feats, feat_lens,
+                                   "beam", beam_config_from_train(self.cfg))
+
+    def _beam_read(self, out: dict, nbest: int = 1):
+        """Read back one beam batch -> (top hypothesis per utterance, the
+        dump's extras per utterance: {"score"} and, for nbest > 1,
+        {"nbest": [...]})."""
+        results = read_decoded(out, out["tokens"].shape[0], self.tokenizer,
+                               nbest)
+        return ([r.pop("text") for r in results], results)
+
+    def eval_heldout(self, params, max_utts: int | None = None,
+                     support_draws: int | None = None) -> dict:
+        """k-shot adaptation + decode on every held-out accent: the headline
+        metric. Decode follows ``train.eval_decode_mode``. Each accent's
+        WER/CER is the mean over ``train.eval_support_draws`` support draws
+        (split seeds 0, 1, ...), with the WER's standard deviation across
+        draws beside it when there are several; ``heldout_wer_mean`` is
+        the mean over accents (1.0 without held-out accents)."""
+        t = self.cfg.train
+        max_utts = max_utts or t.eval_max_utts
+        draws = max(1, support_draws if support_draws is not None
+                    else t.eval_support_draws)
+        out, wers = {}, []
+        for name, ds in self.heldout_datasets.items():
+            draw_wer, draw_cer = [], []
+            for seed in range(draws):
+                adapted, test_idx = self.meta_adapt(params, ds, seed=seed)
+                scores = self.decode(adapted, ds, test_idx,
+                                     max_utts=max_utts,
+                                     mode=t.eval_decode_mode)
+                draw_wer.append(scores["wer"])
+                draw_cer.append(scores["cer"])
+            out[f"heldout_{name}_wer"] = float(np.mean(draw_wer))
+            out[f"heldout_{name}_cer"] = float(np.mean(draw_cer))
+            if draws > 1:
+                out[f"heldout_{name}_wer_std"] = float(np.std(draw_wer))
+            wers.append(float(np.mean(draw_wer)))
+        out["heldout_wer_mean"] = float(np.mean(wers)) if wers else 1.0
+        return out
