@@ -149,6 +149,28 @@ Phases, one JSON line each; any failure exits non-zero:
              (hypotheses, no WER); exact K1/K3 launch counts (8 K3 per
              decode batch).
 
+16. data_prep — data preparation on the acceptance drill's corpus (3
+             accents x 48 utterances rendered at 22.05 kHz, 4 speakers
+             each) through ``prepare_data.main`` in this process:
+             ``commonvoice``, ``speaker-cmvn`` and ``features`` on the card
+             (exactly one K1 launch per utterance each), ``features`` again
+             under the profiler (K1's device ms per utterance), ``vocab``
+             char / phone / bpe; every saved utterance against K1's plain
+             version on the CPU and the float64 oracle by phase 2's bars,
+             frame counts exact, ``cmvn_stats.json`` equal to a float64
+             recompute from the saved arrays. Then, through ``cli.main``, 2
+             FOMAML steps at config3 width (2 tasks: the corpus has 2
+             training accents) on manifests that name only the features,
+             with the BPE vocabulary prep wrote, and ``--mode test`` (beam)
+             on the held-out accent: 0 K1 launches, exactly
+             M*(inner_steps+1) K2 launches a step, losses finite. Seconds
+             per subcommand, utterances/s of ``features`` beside the card's
+             name and power limit.
+17. acceptance — ``python -m metaasr_tpu_torch.scripts.acceptance --smoke
+             --steps 6 --utts 10`` as a subprocess on the card: rc 0,
+             ``ACCEPTANCE GREEN``, 8 served records with text and score, a
+             finite served WER; seconds per stage.
+
 Then a line of the held-out WERs of phases 13 and 14 (random init: a
 trend), a ``{"kernels": [...]}`` line (time, bound, launches on the main
 paths per kernel) and the last line ``{"ok": true, "device": {...}}``.
@@ -2120,6 +2142,263 @@ def phase_mono_test(torch):
     return out
 
 
+# ----------------------------------- data preparation and the drill ----
+
+DRILL_UTTS = 48        # the drill's corpus: 3 accents x 48 at 22.05 kHz
+
+
+def run_prep(argv) -> float:
+    """``prepare_data.main`` in this process (the launch counters stay
+    readable) -> seconds."""
+    from metaasr_tpu_torch.scripts import prepare_data
+
+    import torch
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = prepare_data.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise SystemExit(f"prepare_data {argv[0]} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def check_prepared_features(torch, data, accents) -> dict:
+    """Every utterance's saved features against K1's plain version on the
+    CPU and the float64 oracle, by K1's bars (phase 2): <= 1e-5 from the
+    oracle at every frame and rtol = atol = 1e-4 from the plain version
+    gate. The third, max |diff| <= 1e-4 from the plain version where the
+    plain version is within 1e-4 of the oracle, is printed with
+    ``masked_bar_met``: at a bin where the plain version is just within
+    1e-4 of the oracle, K1's own error (<= 1e-5 from the oracle, gated)
+    on the other side can take it past 1e-4, so it measures the plain
+    version's error there, not K1's. Frame counts exact; the global CMVN
+    statistics against a float64 recompute from the saved arrays."""
+    from metaasr_tpu_torch.data.audio_io import load_wav
+    from metaasr_tpu_torch.frontend.fbank import log_mel_fbank
+    from metaasr_tpu_torch.frontend.oracle import fbank_oracle
+
+    worst = dict.fromkeys(("max_abs_err_where_plain_within_tol", "tol_ratio",
+                           "oracle_max_abs_err", "plain_oracle_max_abs_err"),
+                          0.0)
+    frames, lens_exact, s1, s2 = 0, True, np.zeros(80), np.zeros(80)
+    for accent in accents:
+        with open(os.path.join(data, f"{accent}.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        for r in recs:
+            got = np.load(os.path.join(data, r["feats"]))
+            audio = load_wav(os.path.join(data, r["wav"]), 16000)
+            with torch.no_grad():
+                plain, plens = log_mel_fbank(
+                    torch.from_numpy(audio)[None],
+                    torch.tensor([len(audio)]), cmvn="none")
+            plain = plain[0, : int(plens[0])].numpy()
+            ref = fbank_oracle(audio)
+            lens_exact = (lens_exact and got.dtype == np.float32
+                          and got.shape == plain.shape == ref.shape)
+            if not lens_exact:
+                break
+            d = np.abs(got - plain)
+            well = np.abs(plain - ref) <= K1_TOL
+            for key, val in (
+                    ("max_abs_err_where_plain_within_tol",
+                     float(d[well].max()) if well.any() else 0.0),
+                    ("tol_ratio", float((d / (K1_TOL + K1_TOL
+                                              * np.abs(plain))).max())),
+                    ("oracle_max_abs_err", float(np.abs(got - ref).max())),
+                    ("plain_oracle_max_abs_err",
+                     float(np.abs(plain - ref).max()))):
+                worst[key] = max(worst[key], val)
+            a64 = got.astype(np.float64)
+            s1 += a64.sum(0)
+            s2 += (a64 ** 2).sum(0)
+            frames += len(got)
+    with open(os.path.join(data, "cmvn_stats.json")) as f:
+        stats = json.load(f)
+    mean = s1 / max(frames, 1)
+    stats_equal = (stats["frames"] == frames
+                   and np.array_equal(stats["mean"], mean)
+                   and np.array_equal(stats["var"],
+                                      s2 / max(frames, 1) - mean ** 2))
+    ok = (lens_exact and stats_equal and worst["tol_ratio"] <= 1.0
+          and worst["oracle_max_abs_err"] <= K1_ORACLE_TOL)
+    return {"ok": ok, "frames": frames, "frame_lens_exact": lens_exact,
+            "cmvn_stats_equal_float64_recompute": stats_equal, **worst,
+            "masked_bar_met":
+                worst["max_abs_err_where_plain_within_tol"] <= K1_TOL}
+
+
+def phase_data_prep(torch, smi):
+    """prepare_data commonvoice -> speaker-cmvn -> features (K1 on the card,
+    one launch per utterance, every utterance held to K1's bars) -> vocab
+    char / phone / bpe; then two FOMAML steps at config3 width on the
+    prepared features with the BPE vocabulary, and --mode test (beam) on the
+    held-out accent: no K1 launch on the feats path."""
+    from metaasr_tpu_torch.config import load_config
+    from metaasr_tpu_torch.scripts.acceptance import HELDOUT, make_cv_corpus
+
+    config_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "config3_fomaml.yaml")
+    steps, tasks = 2, 2
+    seconds, counts = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "data")
+        t0 = time.perf_counter()
+        tsv, clips = make_cv_corpus(os.path.join(d, "cv"), DRILL_UTTS, 0)
+        seconds["corpus"] = time.perf_counter() - t0
+        seconds["commonvoice"] = run_prep([
+            "commonvoice", "--tsv", tsv, "--clips-dir", clips, "--out", data,
+            "--min-sec", "0.2", "--max-sec", "20"])
+        accents = sorted(f[:-6] for f in os.listdir(data)
+                         if f.endswith(".jsonl"))
+        utts = 0
+        for accent in accents:
+            with open(os.path.join(data, f"{accent}.jsonl")) as f:
+                utts += sum(1 for _ in f)
+        # speaker-cmvn first: features rewrites the manifests without the
+        # speaker field, as the reference does
+        for cmd in ("speaker-cmvn", "features"):
+            zero_counts()
+            seconds[cmd] = run_prep([cmd, "--data-dir", data])
+            counts[f"prep_{cmd.replace('-', '_')}"] = all_counts()
+        with open(os.path.join(data, "speaker_cmvn.json")) as f:
+            speakers = len(json.load(f))
+        # K1's device time in features, from the profiler's kernel spans
+        # over a second run (the manifests it reads now name the features
+        # and still the WAVs)
+        zero_counts()
+        prof = device_busy(torch, lambda: run_prep(
+            ["features", "--data-dir", data]))
+        k1_ms = sum(ms for name, ms in prof[4].items() if "fbank" in name)
+        profiled_k1 = all_counts()["k1"]
+        vocab = {}
+        for kind in ("char", "phone", "bpe"):
+            seconds[f"vocab_{kind}"] = run_prep(
+                ["vocab", "--data-dir", data, "--type", kind])
+            with open(os.path.join(data, f"vocab_{kind}.json")) as f:
+                vocab[kind] = json.load(f)
+        check = check_prepared_features(torch, data, accents)
+
+        # the feats path: manifests that name only the features (a record
+        # that names a WAV loads the audio, in both packages)
+        feats_data, wd = os.path.join(d, "feats_only"), os.path.join(d, "wd")
+        shutil.copytree(data, feats_data)
+        for accent in accents:
+            man = os.path.join(feats_data, f"{accent}.jsonl")
+            with open(man) as f:
+                recs = [json.loads(line) for line in f]
+            with open(man, "w") as f:
+                f.writelines(json.dumps({k: v for k, v in r.items()
+                                         if k != "wav"}) + "\n"
+                             for r in recs)
+        runs = (("prep_feats_train", [
+            "--mode", "train", "--config", config_path, "--data-dir",
+            feats_data, "--workdir", wd, "--max-steps", str(steps),
+            "-o", "data.vocab=bpe", "-o", f"data.heldout_accents={HELDOUT}",
+            "-o", f"meta.tasks_per_batch={tasks}", "-o", "train.log_every=1",
+            "-o", "train.eval_every=0"]),
+            ("prep_feats_test", ["--mode", "test", "--workdir", wd,
+                                 "--decode-mode", "beam"]))
+        for path, argv in runs:
+            zero_counts()
+            _, seconds[path] = run_cli(argv)
+            counts[path] = all_counts()
+        with open(os.path.join(wd, "logs", "scalars.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        with open(os.path.join(wd, "test_results.json")) as f:
+            test_results = json.load(f)
+        cfg = load_config(os.path.join(wd, "config.yaml"))
+    m = cfg.meta
+    zero = {"k2b": 0, "k3": 0, "k3b": 0}
+    want = {"prep_speaker_cmvn": {"k1": utts, "k2": 0, **zero},
+            "prep_features": {"k1": utts, "k2": 0, **zero},
+            "prep_feats_train": {"k1": 0,
+                                 "k2": steps * tasks * (m.inner_steps + 1),
+                                 **zero},
+            "prep_feats_test": {"k1": 0, "k2": 0, **zero}}
+    losses = [r["meta_loss"] for r in recs if "meta_loss" in r]
+    out = {"phase": "data_prep", "card": smi,
+           "corpus": {"accents": accents, "utts_per_accent": DRILL_UTTS,
+                      "source_rate_hz": 22050, "utterances": utts,
+                      "speakers": speakers},
+           "features": {"utterances": utts, "frames": check["frames"],
+                        "k1_launches": counts["prep_features"]["k1"],
+                        "utts_per_s": utts / seconds["features"],
+                        "profiled_k1_launches": profiled_k1,
+                        "k1_device_ms_per_utt": k1_ms / utts,
+                        "device_busy_ms_per_utt": (
+                            None if prof[1] is None else prof[1] / utts),
+                        "profiled_wall_ms_per_utt": prof[0] / utts},
+           "k1_check": check,
+           "vocab_sizes": {k: len(v["symbols"]) + 2 for k, v in vocab.items()},
+           "bpe_merges": len(vocab["bpe"]["merges"]),
+           "feats_path": {
+               "config": "configs/config3_fomaml.yaml", "model": {
+                   k: getattr(cfg.model, k) for k in (
+                       "d_model", "num_heads", "d_ff", "num_encoder_layers",
+                       "num_decoder_layers", "dtype")},
+               "vocab": cfg.data.vocab,
+               "cuts": {"tasks_per_batch": f"{tasks} (config3: 4; the "
+                        "corpus has 2 training accents)",
+                        "shots": f"{m.k_support} + {m.k_query} (config3's)",
+                        "steps": f"{steps} (config3: 30,000)"},
+               "inner_steps": m.inner_steps, "meta_losses": losses,
+               "test": test_results},
+           "seconds": {k: round(v, 3) for k, v in seconds.items()},
+           "launches": counts, "launches_expected": want}
+    log(out)
+    if not check["ok"]:
+        raise SystemExit("prepared features disagree with K1's plain "
+                         "version or the oracle, or the statistics do")
+    if not (profiled_k1 == utts and k1_ms > 0 and set(vocab) == {
+            "char", "phone", "bpe"} and vocab["bpe"]["type"] == "BPETokenizer"
+            and speakers == 4 * len(accents)):
+        raise SystemExit("features (profiled) or vocab failed")
+    if not (len(losses) == steps and all(math.isfinite(v) for v in losses)
+            and list(test_results) == [HELDOUT]
+            and math.isfinite(test_results[HELDOUT]["wer"])):
+        raise SystemExit("training or testing on the feats manifests failed")
+    if counts != want:
+        raise SystemExit(f"data-prep launch counts {counts}, want {want}")
+    return out
+
+
+def phase_acceptance(torch):
+    """The smoke drill as a user runs it, on the card."""
+    with tempfile.TemporaryDirectory() as d:
+        out_dir = os.path.join(d, "acc")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "metaasr_tpu_torch.scripts.acceptance",
+             "--out", out_dir, "--smoke", "--steps", "6", "--utts", "10"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        summary, records = None, []
+        if r.returncode == 0:
+            with open(os.path.join(out_dir, "acceptance.json")) as f:
+                summary = json.load(f)
+            with open(os.path.join(out_dir, "serve_out.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+    out = {"phase": "acceptance", "argv": "--smoke --steps 6 --utts 10",
+           "rc": r.returncode, "seconds": round(wall, 3),
+           "green": "ACCEPTANCE GREEN" in r.stdout}
+    if summary is not None:
+        out.update({"stage_seconds": {k: v.get("sec") for k, v in
+                                      summary["stages"].items()},
+                    "device": summary["device"],
+                    "served_wer": summary["served_wer"],
+                    "adapted_wer": summary["adapted_wer"],
+                    "served_sample": records[:2]})
+    log(out)
+    if not (r.returncode == 0 and out["green"] and len(records) == 8
+            and all("text" in x and "score" in x for x in records)
+            and math.isfinite(summary["served_wer"])):
+        print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
+        raise SystemExit("the acceptance drill failed")
+    return out
+
+
 def last_line(torch, kind) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2380,6 +2659,8 @@ def main() -> int:
     maml_entry = timed(phase_maml_entry, torch)
     meta_test = timed(phase_meta_test, torch)
     mono_test = timed(phase_mono_test, torch)
+    prep = timed(phase_data_prep, torch, smi)
+    timed(phase_acceptance, torch)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],
@@ -2399,15 +2680,17 @@ def main() -> int:
     mono_paths = lambda k: {"mono_step": mono["launches"][k],  # noqa: E731
                             "mono_entry": mono_entry["launches"][k]}
     lstm_paths = lambda k: {**mono_paths(k), **new_paths(k)}  # noqa: E731
+    prep_paths = {path: c["k1"] for path, c in prep["launches"].items()}
     k1_paths = {"serving": serving["k1_launches"],
                 **{f"meta_step_{c['tasks']}x{c['shots']}": c["k1_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k1_launches"], **mono_paths("k1"),
-                **maml_paths("k1"), **new_paths("k1")}
+                **maml_paths("k1"), **new_paths("k1"), **prep_paths}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
-                **maml_paths("k2"), **new_paths("k2")}
+                **maml_paths("k2"), **new_paths("k2"),
+                "prep_feats_train": prep["launches"]["prep_feats_train"]["k2"]}
     k2_task = k2["shapes"]["per_task"]
     k2b_shapes = k2b["shapes"]
     k2b_task = k2b_shapes["fused"]     # [16, 99, 65]: config4's per-task batch

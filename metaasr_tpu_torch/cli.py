@@ -72,17 +72,19 @@ def _corpus_texts(data_dir: str, field: str) -> list[str]:
 
 
 def build_tokenizer(cfg: Config):
-    """The vocabulary of ``data.vocab``: the ASCII char set, or the phone set
-    loaded from ``<data_dir>/vocab_phone.json`` when present, else built from
-    the manifests' phone transcripts (ARPAbet when they carry none) and
-    saved there. The BPE vocabulary is not ported yet (ROADMAP.md)."""
+    """The vocabulary of ``data.vocab``: the ASCII char set; or the phone or
+    BPE vocabulary loaded from ``<data_dir>/vocab_<kind>.json`` when present,
+    else built from the manifests (phones: their phone transcripts, ARPAbet
+    when they carry none; BPE: 200 merges over their texts) and saved
+    there."""
+    from metaasr_tpu_torch.data.bpe import BPETokenizer
     from metaasr_tpu_torch.data.tokenizer import CharTokenizer, PhoneTokenizer
 
     kind = cfg.data.vocab
     if kind == "char":
         return CharTokenizer.ascii_default()
+    vocab_path = os.path.join(cfg.data.data_dir, f"vocab_{kind}.json")
     if kind == "phone":
-        vocab_path = os.path.join(cfg.data.data_dir, "vocab_phone.json")
         if os.path.exists(vocab_path):
             return PhoneTokenizer.load(vocab_path)
         tok = PhoneTokenizer.from_corpus(
@@ -92,9 +94,11 @@ def build_tokenizer(cfg: Config):
         tok.save(vocab_path)
         return tok
     if kind == "bpe":
-        raise NotImplementedError(
-            "the BPE vocabulary (data.vocab: bpe) is not ported yet "
-            "(ROADMAP.md, port queue)")
+        if os.path.exists(vocab_path):
+            return BPETokenizer.load(vocab_path)
+        tok = BPETokenizer.from_corpus(_corpus_texts(cfg.data.data_dir, "text"))
+        tok.save(vocab_path)
+        return tok
     raise ValueError(f"unknown vocab type {kind}")
 
 

@@ -8,6 +8,10 @@ Vocabulary layout (ESPnet/Kaldi convention):
   id 0           : <blank> (CTC blank, also used as pad)
   ids 1..N       : symbols (chars or phones)
   id vocab_size-1: <sos>/<eos> (shared, attention decoder only)
+
+``_BaseTokenizer.load`` reads any of the three vocabulary files
+(``CharTokenizer``, ``PhoneTokenizer``, ``data.bpe.BPETokenizer``) by the
+type it records.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from metaasr_tpu_torch.constants import BLANK_ID
+from metaasr_tpu_torch.data.bpe import BPETokenizer
 
 
 @dataclass(frozen=True)
@@ -57,10 +62,8 @@ class _BaseTokenizer:
     def load(cls, path: str):
         with open(path) as f:
             d = json.load(f)
-        if d.get("type") not in ("CharTokenizer", "PhoneTokenizer"):
-            raise NotImplementedError(
-                f"tokenizer type {d.get('type')!r} is not ported yet "
-                "(ROADMAP.md, port queue: 'BPE tokenizer')")
+        if d.get("type") == "BPETokenizer":
+            return BPETokenizer.load(path)
         klass = {"CharTokenizer": CharTokenizer, "PhoneTokenizer": PhoneTokenizer}[d["type"]]
         return klass(symbols=tuple(d["symbols"]))
 

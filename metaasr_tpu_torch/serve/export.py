@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from metaasr_tpu_torch.config import Config
+from metaasr_tpu_torch.data.bpe import BPETokenizer
 from metaasr_tpu_torch.data.tokenizer import _BaseTokenizer
 from metaasr_tpu_torch.decode.beam_search import (
     LM_FUSION_TODO,
@@ -194,6 +195,15 @@ def _check_mode(mode: str, arch: str) -> None:
                          "bundles decode greedily (mode='greedy')")
 
 
+def _load_tokenizer(bundle_dir: str, kind: str):
+    """The bundle's ``tokenizer.json`` by the vocabulary kind its
+    ``meta.json`` records, as the reference's ``_load_tokenizer`` reads it."""
+    path = os.path.join(bundle_dir, "tokenizer.json")
+    if kind == "bpe":
+        return BPETokenizer.load(path)
+    return _BaseTokenizer.load(path)  # dispatches on the recorded type
+
+
 class ServingDecoder:
     """Load a bundle and transcribe on one device.
 
@@ -217,8 +227,7 @@ class ServingDecoder:
         beam = self.meta["beam"]
         if self.meta["has_lm"] or beam.get("lm_weight", 0.0) != 0.0:
             raise NotImplementedError(LM_FUSION_TODO)
-        self.tokenizer = _BaseTokenizer.load(
-            os.path.join(bundle_dir, "tokenizer.json"))
+        self.tokenizer = _load_tokenizer(bundle_dir, self.meta["vocab_kind"])
         cfg = bundle_config(bundle_dir, self.meta, cfg)
         self.cfg = cfg
         self.task = ASRTask(cfg, self.meta["sos_eos_id"], device=device)

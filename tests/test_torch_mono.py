@@ -134,11 +134,19 @@ def test_phone_tokenizer_built_saved_and_loaded(corpus, tmp_path):
     want = ref_cli.build_tokenizer(_cfg(RefConfig, work))
     assert tok.symbols == want.symbols and len(tok.symbols) > 0
     assert cli.build_tokenizer(_cfg(Config, work)).symbols == tok.symbols
-    cfg = _cfg(Config, work)
-    cfg.data.vocab = "bpe"
-    with pytest.raises(NotImplementedError, match="BPE") as e:
-        cli.build_tokenizer(cfg)
-    assert "phone" not in str(e.value)
+    # data.vocab=bpe builds the reference's BPE vocabulary beside it
+    cfg, ref_cfg = _cfg(Config, work), _cfg(RefConfig, work)
+    cfg.data.vocab = ref_cfg.data.vocab = "bpe"
+    bpe_path = os.path.join(work, "vocab_bpe.json")
+    bpe = cli.build_tokenizer(cfg)
+    with open(bpe_path) as f:
+        ours = f.read()
+    os.remove(bpe_path)
+    ref_bpe = ref_cli.build_tokenizer(ref_cfg)
+    with open(bpe_path) as f:
+        assert f.read() == ours
+    assert bpe.symbols == ref_bpe.symbols and bpe.merges == ref_bpe.merges
+    assert len(bpe.merges) > 0 and bpe.symbols != tok.symbols
     # manifests without phones fall back to ARPAbet
     bare = tmp_path / "bare"
     bare.mkdir()

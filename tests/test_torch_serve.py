@@ -210,12 +210,17 @@ def test_bundle_gates(fp32_bundle, tmp_path):
         (d / "meta.json").write_text(json.dumps({**meta, **edit}))
         with pytest.raises(err):
             ServingDecoder(str(d), _port_cfg(cfg), device="cpu")
+    # a BPE vocabulary file loads as the BPE tokenizer it records
     bpe = tmp_path / "tok.json"
-    bpe.write_text(json.dumps({"type": "BPETokenizer", "symbols": ["a"]}))
+    bpe.write_text(json.dumps({"type": "BPETokenizer",
+                               "symbols": ["\u2581a", "b", "\u2581ab"],
+                               "merges": [["\u2581a", "b"]]}))
+    from metaasr_tpu_torch.data.bpe import BPETokenizer
     from metaasr_tpu_torch.data.tokenizer import _BaseTokenizer
 
-    with pytest.raises(NotImplementedError, match="BPE"):
-        _BaseTokenizer.load(str(bpe))
+    tok = _BaseTokenizer.load(str(bpe))
+    assert isinstance(tok, BPETokenizer) and tok.vocab_size == 5
+    assert tok.encode("ab a").tolist() == [3, 1]
 
 
 def test_default_device_is_cuda_without_fallback(fp32_bundle):
