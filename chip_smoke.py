@@ -171,15 +171,40 @@ Phases, one JSON line each; any failure exits non-zero:
              ``ACCEPTANCE GREEN``, 8 served records with text and score, a
              finite served WER; seconds per stage.
 
+18. lm_fusion — LM shallow fusion. ``scripts.train_lm.main`` in this
+             process at its defaults (embed 128, hidden 256, 2 layers,
+             batch 32, max_len 64) for 200 steps on an 8-accent text corpus
+             (6-16 words a transcript, ``tango`` held out): exactly
+             200 x 2 K3 and K3b launches, the logged NLL finite and falling,
+             the npz's dims; one step's ms, kernels and busy share; K3 and
+             K3b at the LM's shape [65, 32, 256] (plan, event and device
+             time, plain versions, bound, ``nn.LSTM`` of one LM layer;
+             phase 8's bars). Under strict fp32 there and for the trained
+             LM: its sequence mode (K3) against its step mode on the card
+             (1e-5, the reference's bar), ``lm_nll`` card against CPU
+             (rtol 1e-5), one train step's gradients card against CPU
+             (l2rel <= 1e-3). Phase 3's requests
+             through a config3 bundle carrying the LM (lm_weight 0.3),
+             beside phase 3's readings, then an adapted tree without
+             ``__lm__`` hot-swapped (the bundle's LM serves it); a tiny fp32
+             model with the LM served on cuda and cpu (phase 4's bars). The
+             CLI at config3 width with ``--lm-ckpt``/``--lm-weight``: train
+             (2 steps, one fused held-out evaluation), ``test`` (beam, and
+             again with ``--lm-weight 0``), ``export`` (``has_lm``) and
+             ``serve`` with ``--serve-params`` of an adapted npz; exact
+             launch counts everywhere (K3/K3b 0 in the search).
+
 Then a line of the held-out WERs of phases 13 and 14 (random init: a
 trend), a ``{"kernels": [...]}`` line (time, bound, launches on the main
-paths per kernel) and the last line ``{"ok": true, "device": {...}}``.
+paths per kernel; K3/K3b also at the LM's shape) and the last line
+``{"ok": true, "device": {...}}``.
 
 Precision: the phases that time entry points run under the port's own
 policy (``metaasr_tpu_torch/device.py``, printed on its own line); TF32 is
 off only where the card is held against a plain version or the CPU
-(phases 2, 4, 5, 8, 11 and the small-model parity checks of phases 9 and
-12), through ``strict_fp32``.
+(phases 2, 4, 5, 8, 11, the small-model parity checks of phases 9 and
+12, and phase 18's kernels at the LM's shape, LM parity and cuda/cpu
+serving), through ``strict_fp32``.
 
 Four more modes, each needing one card:
 
@@ -249,6 +274,33 @@ def cuda_median_ms(torch, fn, runs: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, runs: int = 30, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``runs`` calls captured in a CUDA
+    graph and replayed between CUDA events, so neither the host's issue
+    time nor the profiler enters; the median over ``replays``, per call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                      # warm-up off the capture, as it requires
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(runs):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / runs)
+    return statistics.median(times)
+
+
 def device_ms_per_call(torch, fn, runs: int = 30) -> float:
     """Device time per call of ``fn``: the union of the CUDA kernel spans
     the profiler records over ``runs`` calls, over ``runs``."""
@@ -295,7 +347,8 @@ def precision_line(torch) -> dict:
         "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "strict_fp32_in": "phases 2, 4, 5, 8, 11; small-model parity of "
-                          "phases 9 and 12"}}
+                          "phases 9 and 12; phase 18's K3/K3b at the LM's "
+                          "shape, LM parity and cuda/cpu serving"}}
 
 
 def phase_build():
@@ -569,14 +622,18 @@ def config3():
     return cfg, tok
 
 
-def seeded_bundle(cfg, tok, out_dir, buckets, seed):
+def seeded_bundle(cfg, tok, out_dir, buckets, seed, lm_params=None):
+    """A bundle of ``cfg``'s model with weights from a numpy seed (and the
+    Flax-layout LM ``lm_params``, fused when train.lm_weight is not 0) ->
+    the model's Flax tree."""
     from metaasr_tpu_torch.serve.export import write_bundle
     from metaasr_tpu_torch.task import build_model
     from metaasr_tpu_torch.weights import random_state_dict, state_dict_to_flax
 
     sd = random_state_dict(build_model(cfg), seed)
     tree = state_dict_to_flax(sd, cfg.model.num_heads)
-    write_bundle(out_dir, cfg, tree, tok, buckets)
+    write_bundle(out_dir, cfg, tree, tok, buckets, lm_params=lm_params)
+    return tree
 
 
 def check_results(results, n, tok):
@@ -637,57 +694,70 @@ def device_busy(torch, fn):
             by_name)
 
 
-def phase_serving(torch):
-    from metaasr_tpu_torch.frontend.fbank_kernel import fused_log_mel
-    from metaasr_tpu_torch.serve.export import ServingDecoder
-
-    cfg, tok = config3()
+def serving_waves():
+    """Phase 3's 16 utterances of 24,000-64,000 samples."""
     bsz, width = SERVE_BUCKET
     rng = np.random.default_rng(1)
     full_lens = [width] + rng.integers(24000, width, bsz - 1).tolist()
-    waves = [w[:n] for w, n in zip(make_waves(rng, full_lens, width),
-                                   full_lens)]
+    return [w[:n] for w, n in zip(make_waves(rng, full_lens, width),
+                                  full_lens)]
+
+
+def serve_requests(torch, dec, tok, params=None) -> dict:
+    """Phase 3's four requests through ``dec`` (a full batch twice, the
+    second timed, 5 utterances, one) and one more full batch under the
+    profiler, the launch counts zeroed first -> readings."""
+    waves = serving_waves()
     requests = [("full", waves), ("full", waves), ("five", waves[3:8]),
                 ("one", waves[5:6])]
-    with tempfile.TemporaryDirectory() as d:
-        seeded_bundle(cfg, tok, d, [SERVE_BUCKET], seed=0)
-        dec = ServingDecoder(d, cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    fused_log_mel.launches = 0
+    zero_counts()
     timings = []
     for name, xs in requests:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = dec.transcribe(xs, nbest=2)
+        res = dec.transcribe(xs, params=params, nbest=2)
         torch.cuda.synchronize()
         timings.append((name, 1e3 * (time.perf_counter() - t0), res))
     # one more full batch under the profiler: how busy is the device?
-    prof = device_busy(torch, lambda: dec.transcribe(waves, nbest=2))
-    launches = fused_log_mel.launches
+    prof = device_busy(torch, lambda: dec.transcribe(waves, params=params,
+                                                     nbest=2))
+    counts = all_counts()
     for (name, _, res), (_, xs) in zip(timings, requests):
         check_results(res, len(xs), tok)
     full_ms = timings[1][1]
+    return {"requests": [{"name": n, "utts": len(r), "ms": ms,
+                          "max_hyp_chars": max(len(x["text"]) for x in r)}
+                         for n, ms, r in timings],
+            "ms_per_batch_full": full_ms,
+            "utts_per_s_full": SERVE_BUCKET[0] / (full_ms / 1e3),
+            "k1_launches": counts["k1"], "launches": counts,
+            "profiled_full": {"wall_ms": prof[0], "device_busy_ms": prof[1],
+                              "cuda_kernels": prof[2],
+                              "top_kernels_ms": prof[3]},
+            "device_busy_share_of_timed_full": (
+                None if prof[1] is None else prof[1] / full_ms),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "sample": timings[1][2][0]}
+
+
+def phase_serving(torch):
+    from metaasr_tpu_torch.serve.export import ServingDecoder
+
+    cfg, tok = config3()
+    with tempfile.TemporaryDirectory() as d:
+        seeded_bundle(cfg, tok, d, [SERVE_BUCKET], seed=0)
+        dec = ServingDecoder(d, cfg, device="cuda")
     out = {"phase": "serving", "bucket": list(SERVE_BUCKET),
            "model": {"d_model": 256, "heads": 4, "d_ff": 2048,
                      "layers": [12, 6], "vocab": tok.vocab_size,
                      "dtype": "bfloat16"},
            "beam": {"beam_size": 10, "ctc_weight": 0.3, "max_len": 128},
-           "requests": [{"name": n, "utts": len(r), "ms": ms,
-                         "max_hyp_chars": max(len(x["text"]) for x in r)}
-                        for n, ms, r in timings],
-           "ms_per_batch_full": full_ms,
-           "utts_per_s_full": bsz / (full_ms / 1e3),
-           "k1_launches": launches,
-           "profiled_full": {"wall_ms": prof[0], "device_busy_ms": prof[1],
-                             "cuda_kernels": prof[2], "top_kernels_ms": prof[3]},
-           "device_busy_share_of_timed_full": (
-               None if prof[1] is None else prof[1] / full_ms),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "sample": timings[1][2][0]}
+           **serve_requests(torch, dec, tok)}
     log(out)
-    if launches != len(requests) + 1:
-        raise SystemExit(f"K1 launched {launches} times for "
-                         f"{len(requests) + 1} requests")
+    if out["k1_launches"] != 5:
+        raise SystemExit(f"K1 launched {out['k1_launches']} times for 5 "
+                         "requests")
     return out
 
 
@@ -1078,12 +1148,91 @@ def l2rel(torch, a, b) -> float:
                  / torch.linalg.norm(b).clamp_min(1e-30))
 
 
-def phase_lstm_kernel(torch, peaks, ptxas):
+def lstm_bounds(shape, peaks) -> dict:
+    """K3's and K3b's least time at [T, B, H]. Forward: the reference's
+    operation count (lstm_pallas.py:155) and every array once, the gates
+    written; backward from the saved gates: dgates @ U^T and h_prev^T @
+    dgates, 2 products of 2*T*B*H*4H (the reference's 6 counts the
+    recompute)."""
+    t_len, bsz, hidden = shape
+    cell = t_len * bsz * hidden
+    out = {}
+    for tag, flops, floats in (
+            ("fwd", 2 * cell * 4 * hidden,
+             cell * (4 + 2 + 4) + 4 * hidden * hidden),
+            ("bwd", 4 * cell * 4 * hidden,
+             cell * (4 + 3 + 4) + 2 * 4 * hidden * hidden)):
+        t_ops, t_bytes = flops / peaks[0], 4 * floats / peaks[1]
+        out[f"{tag}_gflop"] = flops / 1e9
+        out[f"{tag}_bound_ms"] = 1e3 * max(t_ops, t_bytes)
+        out[f"{tag}_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return out
+
+
+def lstm_yardstick(torch, d_in, u, dout, seed) -> dict:
+    """One LSTM layer, input d_in -> hidden, over dout's [T, B]: K3 +
+    F.linear against torch.nn.LSTM (cuDNN, +1 folded into the forget
+    bias), the largest |difference| of h and CUDA-event medians of the
+    forward, forward + backward and the backward alone of each."""
     import torch.nn.functional as F
 
     from metaasr_tpu_torch.ops import lstm_kernel as lk
 
-    peak_flops, peak_bw = peaks
+    t_len, bsz, hidden = dout.shape
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(
+        (t_len, bsz, d_in)).astype(np.float32)).to(DEVICE)
+    w = torch.from_numpy((rng.standard_normal((4 * hidden, d_in))
+                          / np.sqrt(d_in)).astype(np.float32)).to(DEVICE)
+    b = torch.from_numpy((0.02 * rng.standard_normal(
+        4 * hidden)).astype(np.float32)).to(DEVICE)
+    u = u.clone()
+    lib = torch.nn.LSTM(d_in, hidden).to(DEVICE)
+    forget = torch.zeros(4 * hidden, device=DEVICE)
+    forget[hidden: 2 * hidden] = 1.0
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(w)
+        lib.weight_hh_l0.copy_(u.t())
+        lib.bias_ih_l0.copy_(b + forget)
+        lib.bias_hh_l0.zero_()
+    params = [w, b, u]
+
+    def ours(train):
+        for p in params:
+            p.requires_grad_(train)
+            p.grad = None
+        out = lk.lstm_recurrence(F.linear(x, w, b), u)
+        if train:
+            (out * dout).sum().backward()
+        return out
+
+    def library(train):
+        for p in lib.parameters():
+            p.requires_grad_(train)
+            p.grad = None
+        out, _ = lib(x)
+        if train:
+            (out * dout).sum().backward()
+        return out
+
+    with torch.no_grad():
+        diff = float((ours(False) - library(False)).abs().max())
+    out = {"max_abs_diff_to_kernel_layer": diff,
+           "nn_lstm_fwd_ms": cuda_median_ms(torch, lambda: library(False)),
+           "nn_lstm_fwd_bwd_ms": cuda_median_ms(torch, lambda: library(True)),
+           "kernel_layer_fwd_ms": cuda_median_ms(torch, lambda: ours(False)),
+           "kernel_layer_fwd_bwd_ms": cuda_median_ms(torch,
+                                                     lambda: ours(True))}
+    # the backward alone (K3b + the projection's backward against cuDNN's)
+    out["nn_lstm_bwd_ms"] = out["nn_lstm_fwd_bwd_ms"] - out["nn_lstm_fwd_ms"]
+    out["kernel_layer_bwd_ms"] = (out["kernel_layer_fwd_bwd_ms"]
+                                  - out["kernel_layer_fwd_ms"])
+    return out
+
+
+def phase_lstm_kernel(torch, peaks, ptxas):
+    from metaasr_tpu_torch.ops import lstm_kernel as lk
+
     res = {"phase": "lstm_kernel", "fwd_tol": LSTM_FWD_TOL,
            "grad_l2rel_tol": LSTM_GRAD_L2REL, "ptxas": ptxas, "shapes": {}}
     ok = True
@@ -1134,20 +1283,7 @@ def phase_lstm_kernel(torch, peaks, ptxas):
             entry["plain_bwd_ms"] = cuda_median_ms(
                 torch, lambda: lk.plain_lstm_backward(p_g, u, p_h, p_c, dout),
                 runs=10, warmup=2)
-            # forward: the reference's operation count (lstm_pallas.py:155)
-            # and every array once, the gates written; backward from the
-            # saved gates: dgates @ U^T and h_prev^T @ dgates, 2 products
-            # of 2*T*B*H*4H (the reference's 6 counts the recompute)
-            cell = t_len * bsz * hidden
-            for tag, flops, floats in (
-                    ("fwd", 2 * cell * 4 * hidden,
-                     cell * (4 + 2 + 4) + 4 * hidden * hidden),
-                    ("bwd", 4 * cell * 4 * hidden,
-                     cell * (4 + 3 + 4) + 2 * 4 * hidden * hidden)):
-                t_ops, t_bytes = flops / peak_flops, 4 * floats / peak_bw
-                entry[f"{tag}_bound_ms"] = 1e3 * max(t_ops, t_bytes)
-                entry[f"{tag}_bound_by"] = ("operations" if t_ops >= t_bytes
-                                            else "bytes")
+            entry.update(lstm_bounds(shape, peaks))
             entry["fwd_us_per_dependent_step"] = 1e3 * entry["fwd_ms"] / t_len
             entry["bptt_us_per_dependent_step"] = \
                 1e3 * entry["bptt_ms"] / t_len
@@ -1178,59 +1314,13 @@ def phase_lstm_kernel(torch, peaks, ptxas):
     # the library yardstick: one BLSTM direction of config1's layers 2-4,
     # [99, 16, 640 -> 320]; nn.LSTM (cuDNN) includes the input projection
     t_len, bsz, hidden = LSTM_SHAPES["config1"]
-    d_in = 2 * hidden
-    rng = np.random.default_rng(30)
-    x = torch.from_numpy(rng.standard_normal(
-        (t_len, bsz, d_in)).astype(np.float32)).to(DEVICE)
-    w = torch.from_numpy((rng.standard_normal((4 * hidden, d_in))
-                          / np.sqrt(d_in)).astype(np.float32)).to(DEVICE)
-    b = torch.from_numpy((0.02 * rng.standard_normal(
-        4 * hidden)).astype(np.float32)).to(DEVICE)
     _, u, dout = lstm_inputs(torch, LSTM_SHAPES["config1"], seed=31)
-    lib = torch.nn.LSTM(d_in, hidden).to(DEVICE)
-    forget = torch.zeros(4 * hidden, device=DEVICE)
-    forget[hidden: 2 * hidden] = 1.0
-    with torch.no_grad():
-        lib.weight_ih_l0.copy_(w)
-        lib.weight_hh_l0.copy_(u.t())
-        lib.bias_ih_l0.copy_(b + forget)
-        lib.bias_hh_l0.zero_()
-    params = [w, b, u]
-
-    def ours(train):
-        for p in params:
-            p.requires_grad_(train)
-            p.grad = None
-        out = lk.lstm_recurrence(F.linear(x, w, b), u)
-        if train:
-            (out * dout).sum().backward()
-        return out
-
-    def library(train):
-        for p in lib.parameters():
-            p.requires_grad_(train)
-            p.grad = None
-        out, _ = lib(x)
-        if train:
-            (out * dout).sum().backward()
-        return out
-
-    with torch.no_grad():
-        yard_diff = float((ours(False) - library(False)).abs().max())
     res["library_yardstick"] = {
         "what": "torch.nn.LSTM (cuDNN), +1 folded into the forget bias; "
                 "includes the input projection x @ W + b",
-        "shape": [t_len, bsz, d_in, hidden],
-        "max_abs_diff_to_kernel_layer": yard_diff,
-        "nn_lstm_fwd_ms": cuda_median_ms(torch, lambda: library(False)),
-        "nn_lstm_fwd_bwd_ms": cuda_median_ms(torch, lambda: library(True)),
-        "kernel_layer_fwd_ms": cuda_median_ms(torch, lambda: ours(False)),
-        "kernel_layer_fwd_bwd_ms": cuda_median_ms(torch, lambda: ours(True))}
-    yard = res["library_yardstick"]
-    # the backward alone (K3b + the projection's backward against cuDNN's)
-    yard["nn_lstm_bwd_ms"] = yard["nn_lstm_fwd_bwd_ms"] - yard["nn_lstm_fwd_ms"]
-    yard["kernel_layer_bwd_ms"] = (yard["kernel_layer_fwd_bwd_ms"]
-                                   - yard["kernel_layer_fwd_ms"])
+        "shape": [t_len, bsz, 2 * hidden, hidden],
+        **lstm_yardstick(torch, 2 * hidden, u, dout, seed=30)}
+    yard_diff = res["library_yardstick"]["max_abs_diff_to_kernel_layer"]
     log(res)
     if not ok:
         raise SystemExit("K3/K3b disagree with their plain versions")
@@ -2399,6 +2489,382 @@ def phase_acceptance(torch):
     return out
 
 
+# ------------------------------------------------ LM shallow fusion ----
+
+LM_STEPS = 200          # train_lm at its defaults otherwise:
+LM_DIMS = {"vocab_size": 30, "embed_dim": 128, "hidden": 256, "layers": 2}
+LM_SHAPE = (65, 32, 256)  # [T, B, H] of train_lm: max_len 64 + sos, batch 32
+LM_WEIGHT = 0.3
+LM_SEQ_STEP_TOL = 1e-5   # rtol = atol, tests/test_lm_fusion.py:53
+LM_NLL_RTOL = 1e-5
+
+
+def lm_kernel_times(torch, peaks) -> dict:
+    """K3 and K3b at the LM's training shape [65, 32, 256] against their
+    plain versions (run it under strict fp32): plan, CUDA-event times of
+    the wrappers, the kernels' device time from CUDA-graph replays of the
+    raw launches (at the plan's tile and at tiles 4, 8, 16: 8, 4 and 2
+    clusters), the plain versions', the bound, and torch.nn.LSTM (cuDNN) of
+    one LM layer (input 256) beside K3 + F.linear."""
+    from metaasr_tpu_torch.ops import lstm_kernel as lk
+
+    _, bsz, hidden = LM_SHAPE
+    gx, u, dout = lstm_inputs(torch, LM_SHAPE, seed=40)
+    h_seq, c_seq, gates = lk.lstm_forward(gx, u)
+    p_h, p_c, p_g = lk.plain_lstm_forward(gx, u)
+    p_dgx, p_du = lk.plain_lstm_backward(p_g, u, p_h, p_c, dout)
+    dgx, du = lk.lstm_backward(gates, u, h_seq, c_seq, dout)
+    out = {"shape_tbh": list(LM_SHAPE), "plan": lk.plan(bsz, hidden,
+                                                       gx.device),
+           "tiles": -(-bsz // lk.plan(bsz, hidden, gx.device)["tile"]),
+           "fwd_max_abs_diff": float((h_seq - p_h).abs().max()),
+           "dgx_l2rel": l2rel(torch, dgx, p_dgx),
+           "du_l2rel": l2rel(torch, du, p_du),
+           "fwd_ms": cuda_median_ms(torch, lambda: lk.lstm_forward(gx, u)),
+           "bwd_ms": cuda_median_ms(torch, lambda: lk.lstm_backward(
+               gates, u, h_seq, c_seq, dout)),
+           "plain_fwd_ms": cuda_median_ms(
+               torch, lambda: lk.plain_lstm_forward(gx, u), runs=6, warmup=2),
+           "plain_bwd_ms": cuda_median_ms(
+               torch, lambda: lk.plain_lstm_backward(p_g, u, p_h, p_c, dout),
+               runs=6, warmup=2)}
+    p = out["plan"]
+    out["fwd_device_ms"] = graph_ms(torch, lambda: lk._launch_forward(
+        gx, u, h_seq, c_seq, gates, p))
+    out["bwd_device_ms"] = graph_ms(torch, lambda: (
+        lk._launch_bptt(gates, u, c_seq, dout, dgx, p),
+        lk._launch_du(h_seq, dgx, du)))
+    # 8 batch tiles of 4 rows against cudaOccupancyMaxActiveClusters: the
+    # recurrences' device time at tiles 4, 8 and 16 (8, 4 and 2 clusters)
+    out["tile_sweep_device_ms"] = []
+    for tile in LSTM_TILES:
+        p = lk.plan(bsz, hidden, gx.device, tile)
+        out["tile_sweep_device_ms"].append({
+            "tile": tile, "clusters": -(-bsz // tile),
+            "fwd": graph_ms(torch, lambda: lk._launch_forward(
+                gx, u, h_seq, c_seq, gates, p)),
+            "bptt": graph_ms(torch, lambda: lk._launch_bptt(
+                gates, u, c_seq, dout, dgx, p))})
+    out.update(lstm_bounds(LM_SHAPE, peaks))
+    # the library yardstick: one LM layer (input 256) in cuDNN
+    out.update(lstm_yardstick(torch, hidden, u, dout, seed=41))
+    return out
+
+
+def lm_parity(torch, tree, batch) -> dict:
+    """Under strict fp32: the trained LM's sequence mode (K3) against its
+    step mode on the card, lm_nll on the card against the CPU, and one
+    train step's gradients (K3b) on the card against the CPU."""
+    from metaasr_tpu_torch.models.lm import (
+        lm_from_flax,
+        lm_nll,
+        lm_optimizer,
+        lm_train_step,
+    )
+
+    toks, lens, sos_eos = batch
+    devices = {"card": DEVICE, "cpu": "cpu"}
+    models = {k: lm_from_flax(tree, dev) for k, dev in devices.items()}
+    with torch.no_grad():
+        card = models["card"]
+        tok_d = toks.to(DEVICE)
+        seq = card(tok_d)
+        state = card.init_state(toks.shape[0])
+        steps = []
+        for t in range(toks.shape[1]):
+            logits, state = card.step(tok_d[:, t: t + 1], state)
+            steps.append(logits)
+        steps = torch.stack(steps, 1)
+        excess = float(((seq - steps).abs() - LM_SEQ_STEP_TOL
+                        * steps.abs()).max())
+        nll = {k: float(lm_nll(m, None, toks.to(devices[k]),
+                               lens.to(devices[k]), sos_eos))
+               for k, m in models.items()}
+    grads = {}
+    for k, m in models.items():
+        params = {name: v.detach().clone().requires_grad_()
+                  for name, v in m.named_parameters()}
+        opt = lm_optimizer(1e-3)
+        grads[k] = lm_train_step(m, opt, params, opt.init(params),
+                                 toks.to(devices[k]), lens.to(devices[k]),
+                                 sos_eos)[3]
+    grad_l2rel = {name: l2rel(torch, g.cpu(), grads["cpu"][name])
+                  for name, g in grads["card"].items()}
+    return {"seq_vs_step_max_abs_diff": float((seq - steps).abs().max()),
+            "seq_vs_step_excess_over_bar": excess,
+            "seq_vs_step_bar": f"|seq - step| <= {LM_SEQ_STEP_TOL} "
+                               f"(1 + |step|)",
+            "nll_card": nll["card"], "nll_cpu": nll["cpu"],
+            "nll_rel_diff": abs(nll["card"] - nll["cpu"]) / abs(nll["cpu"]),
+            "grad_l2rel": grad_l2rel,
+            "ok": (excess <= LM_SEQ_STEP_TOL and abs(nll["card"] - nll["cpu"])
+                   <= LM_NLL_RTOL * abs(nll["cpu"])
+                   and max(grad_l2rel.values()) <= LSTM_GRAD_L2REL)}
+
+
+def phase_lm_fusion(torch, peaks, serving, smi):
+    """train_lm at its defaults (200 steps) through scripts.train_lm.main ->
+    K3/K3b at the LM's shape -> the LM's parity on the card -> fused
+    serving at config3 width with a hot-swapped adapted tree -> CUDA
+    against CPU serving of a tiny fused bundle -> the CLI's train (fused
+    held-out evaluation), test, export and serve with --lm-ckpt /
+    --lm-weight at config3 width."""
+    import io
+
+    from metaasr_tpu_torch.cli import build_tokenizer, make_trainer
+    from metaasr_tpu_torch.config import Config, load_config
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+    from metaasr_tpu_torch.data.tokenizer import CharTokenizer
+    from metaasr_tpu_torch.models.lm import (
+        lm_dims_from_params,
+        lm_from_flax,
+        lm_optimizer,
+        lm_train_step,
+    )
+    from metaasr_tpu_torch.scripts import train_lm
+    from metaasr_tpu_torch.serve.export import ServingDecoder
+    from metaasr_tpu_torch.train.checkpoint import (
+        load_params_npz,
+        save_params_npz,
+    )
+    from metaasr_tpu_torch.weights import flatten_tree
+
+    config_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "config3_fomaml.yaml")
+    res = {"phase": "lm_fusion", "card": smi, "lm_weight": LM_WEIGHT}
+    seconds, counts = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        # (a) train_lm on an 8-accent text corpus, tango held out; long
+        # transcripts so the LM's sequences reach max_len 64 (T = 65)
+        lm_data, npz = os.path.join(d, "lm_data"), os.path.join(d, "lm.npz")
+        generate_dataset(lm_data, utts_per_accent=64, words_per_utt=(6, 16),
+                         seed=1, write_wavs=False)
+        buf = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_lm.main(["--config", config_path, "--out", npz,
+                           "--steps", str(LM_STEPS), "-o",
+                           f"data.data_dir={lm_data}", "-o",
+                           "data.heldout_accents=tango"])
+        torch.cuda.synchronize()
+        seconds["train_lm"] = time.perf_counter() - t0
+        counts["lm_train_lm"] = all_counts()
+        nlls = [float(ln.split()[-1]) for ln in buf.getvalue().splitlines()
+                if ln.startswith("lm step")]
+        tree = load_params_npz(npz)
+        dims = lm_dims_from_params(tree)
+        # one training step of the same shapes, profiled
+        lm_cfg = load_config(config_path, {"data.data_dir": lm_data})
+        tok = build_tokenizer(lm_cfg)
+        texts = train_lm.lm_corpus(lm_data, ("tango",))
+        enc = [tok.encode(t)[:64] for t in texts[:LM_SHAPE[1]]]
+        toks = torch.zeros((len(enc), max(map(len, enc))), dtype=torch.long)
+        for i, e in enumerate(enc):
+            toks[i, :len(e)] = torch.from_numpy(np.asarray(e))
+        lens = torch.tensor([len(e) for e in enc])
+        model = lm_from_flax(tree, DEVICE)
+        params = {k: v.detach().clone().requires_grad_()
+                  for k, v in model.named_parameters()}
+        opt = lm_optimizer(1e-3)
+        opt_state = opt.init(params)
+        step_args = (toks.to(DEVICE), lens.to(DEVICE), tok.sos_eos_id)
+        lm_train_step(model, opt, params, opt_state, *step_args)
+        step_ms = cuda_median_ms(torch, lambda: lm_train_step(
+            model, opt, params, opt_state, *step_args), runs=10, warmup=2)
+        prof = device_busy(torch, lambda: lm_train_step(
+            model, opt, params, opt_state, *step_args))
+        res["train_lm"] = {
+            "corpus": {"accents": 7, "transcripts": len(texts),
+                       "max_chars": max(len(t) for t in texts)},
+            "steps": LM_STEPS, "dims": dims, "batch_size": 32,
+            "max_len": 64, "seconds": seconds["train_lm"],
+            "ms_per_step_with_setup": 1e3 * seconds["train_lm"] / LM_STEPS,
+            "logged_nll": nlls, "launches": counts["lm_train_lm"],
+            "step_shape_tbh": [toks.shape[1] + 1, toks.shape[0],
+                               dims["hidden"]],
+            "ms_per_step": step_ms,
+            "profiled_step": {"wall_ms": prof[0], "device_busy_ms": prof[1],
+                              "cuda_kernels": prof[2],
+                              "top_kernels_ms": prof[3],
+                              "lstm_kernels_ms": {
+                                  n[:40]: ms for n, ms in prof[4].items()
+                                  if "lstm" in n}}}
+        # (b) K3/K3b at the LM's shape and the LM's parity, strict fp32
+        # (the plain versions' and the step mode's cuBLAS products)
+        with strict_fp32():
+            res["kernels_at_lm_shape"] = lm_kernel_times(torch, peaks)
+            res["parity"] = lm_parity(torch, tree, (toks, lens,
+                                                    tok.sos_eos_id))
+
+        # (c) fused serving at config3 width, phase 3's requests
+        cfg, ctok = config3()
+        cfg.train.lm_weight = LM_WEIGHT
+        bundle = os.path.join(d, "bundle3")
+        asr_tree = seeded_bundle(cfg, ctok, bundle, [SERVE_BUCKET], seed=0,
+                                 lm_params=tree)
+        dec = ServingDecoder(bundle, cfg, device=DEVICE)
+        fused = serve_requests(torch, dec, ctok)
+        adapted = {k: v + 0.01 for k, v in flatten_tree(asr_tree).items()}
+        zero_counts()
+        swapped = dec.transcribe(serving_waves()[:4], params=adapted)
+        counts["lm_hot_swap"] = all_counts()
+        check_results(swapped, 4, ctok)
+        swap_lm = dec._resolve_params(adapted)[1]
+        res["fused_serving"] = {
+            **fused, "card": smi, "bucket": list(SERVE_BUCKET),
+            "beam_size": 10,
+            "ctc_weight": 0.3, "max_len": 128,
+            "hot_swap_keeps_bundle_lm": swap_lm is dec.lm,
+            "hot_swap_sample": swapped[0],
+            "unfused_phase3": {
+                "ms_per_batch_full": serving["ms_per_batch_full"],
+                "cuda_kernels": serving["profiled_full"]["cuda_kernels"],
+                "device_busy_ms": serving["profiled_full"]["device_busy_ms"],
+                "device_busy_share_of_timed_full":
+                    serving["device_busy_share_of_timed_full"],
+                "max_hyp_chars": [r["max_hyp_chars"]
+                                  for r in serving["requests"]]},
+            "ratio_ms": fused["ms_per_batch_full"]
+            / serving["ms_per_batch_full"],
+            "ratio_kernels": fused["profiled_full"]["cuda_kernels"]
+            / serving["profiled_full"]["cuda_kernels"]}
+        counts["lm_fused_serving"] = fused["launches"]
+
+        # (d) CUDA against CPU, a tiny fp32 model and the trained LM
+        tcfg = Config()
+        tm = tcfg.model
+        tm.d_model, tm.num_heads, tm.d_ff = 32, 2, 64
+        tm.num_encoder_layers = tm.num_decoder_layers = 2
+        tm.dtype, tm.vocab_size = "float32", ctok.vocab_size
+        tcfg.data.max_tokens, tcfg.train.beam_size = 8, 3
+        tcfg.train.lm_weight = LM_WEIGHT
+        plens = [16000, 9000, 401, 12345]
+        prng = np.random.default_rng(2)
+        pwaves = [w[:n] for w, n in zip(make_waves(prng, plens, 16000),
+                                        plens)]
+        tiny = os.path.join(d, "tiny")
+        seeded_bundle(tcfg, ctok, tiny, [(4, 16000)], seed=1, lm_params=tree)
+        with strict_fp32():
+            got = ServingDecoder(tiny, tcfg, device=DEVICE).transcribe(
+                pwaves, nbest=3)
+            want = ServingDecoder(tiny, tcfg, device="cpu").transcribe(
+                pwaves, nbest=3)
+        res["cuda_vs_cpu"] = {
+            "same_text": all([x["hyp"] for x in g["nbest"]]
+                             == [x["hyp"] for x in w["nbest"]]
+                             for g, w in zip(got, want)),
+            "max_score_diff": max(abs(a["score"] - b["score"])
+                                  for g, w in zip(got, want)
+                                  for a, b in zip(g["nbest"], w["nbest"])),
+            "tolerance": PARITY_TOL, "texts": [g["text"] for g in got]}
+
+        # (e) the CLI at config3 width with --lm-ckpt / --lm-weight
+        data, wd = os.path.join(d, "data"), os.path.join(d, "wd")
+        utts, steps = 16, 2
+        generate_dataset(data, utts_per_accent=utts, words_per_utt=(2, 4),
+                         seed=0)
+        lm_flags = ["--lm-ckpt", npz, "--lm-weight", str(LM_WEIGHT)]
+
+        def cli(path, argv):
+            zero_counts()
+            out, seconds[path] = run_cli(argv)
+            counts[path] = all_counts()
+            return out
+
+        cli("lm_cli_train", [
+            "--mode", "train", "--config", config_path, "--data-dir", data,
+            "--workdir", wd, "--max-steps", str(steps), *lm_flags,
+            "-o", "data.heldout_accents=tango",
+            "-o", f"train.eval_every={steps}",
+            "-o", "train.eval_support_draws=1", "-o", "train.eval_max_utts=8",
+            "-o", "train.eval_decode_mode=beam", "-o", "train.ckpt_every=1000"])
+        with open(os.path.join(wd, "logs", "scalars.jsonl")) as f:
+            evals = [json.loads(line) for line in f
+                     if "heldout_wer_mean" in line]
+        results = {}
+        for path, extra in (("lm_cli_test", lm_flags),
+                            ("lm_cli_test_weight_0", ["--lm-weight", "0"])):
+            cli(path, ["--mode", "test", "--workdir", wd, "--decode-mode",
+                       "beam", *extra])
+            with open(os.path.join(wd, "test_results.json")) as f:
+                results[path] = json.load(f)
+        bundle = os.path.join(d, "bundle_cli")
+        cli("lm_cli_export", ["--mode", "export", "--workdir", wd,
+                              "--export-dir", bundle, "--export-buckets",
+                              "4x96000", *lm_flags])
+        with open(os.path.join(bundle, "meta.json")) as f:
+            meta = json.load(f)
+        run_cfg = load_config(os.path.join(wd, "config.yaml"))
+        trainer, _ = make_trainer(run_cfg, wd, DEVICE)
+        state, _ = trainer.ckpt.restore(map_location=DEVICE)
+        adapted_p, _ = trainer.meta_adapt(
+            state["params"], trainer.heldout_datasets["tango"], seed=0)
+        adapted_npz = os.path.join(d, "adapted.npz")
+        save_params_npz(adapted_npz, adapted_p, run_cfg.model.num_heads)
+        wavs = [os.path.join(data, "wav", "tango", f"tango_000{i}.wav")
+                for i in range(4)]
+        served = [json.loads(line) for line in cli("lm_cli_serve", [
+            "--mode", "serve", "--bundle", bundle, "--wav", *wavs,
+            "--serve-params", adapted_npz]).splitlines()]
+
+    m, bsz = run_cfg.meta, run_cfg.data.batch_size
+    eval_batches = -(-min(8, utts - m.k_support) // bsz)
+    zero = {"k2b": 0, "k3": 0, "k3b": 0}
+    want = {
+        "lm_train_lm": {"k1": 0, "k2": 0, "k2b": 0,
+                        "k3": LM_STEPS * LM_DIMS["layers"],
+                        "k3b": LM_STEPS * LM_DIMS["layers"]},
+        "lm_fused_serving": {"k1": 5, "k2": 0, **zero},
+        "lm_hot_swap": {"k1": 1, "k2": 0, **zero},
+        "lm_cli_train": {
+            "k1": steps * 2 * m.tasks_per_batch + 1 + eval_batches,
+            "k2": steps * m.tasks_per_batch * (m.inner_steps + 1)
+            + m.adapt_steps, **zero},
+        "lm_cli_test": {"k1": -(-utts // bsz), "k2": 0, **zero},
+        "lm_cli_test_weight_0": {"k1": -(-utts // bsz), "k2": 0, **zero},
+        "lm_cli_export": {"k1": 0, "k2": 0, **zero},
+        "lm_cli_serve": {"k1": 1, "k2": 0, **zero}}
+    res["cli"] = {"config": "configs/config3_fomaml.yaml", "utts_per_accent":
+                  utts, "heldout": "tango", "steps": steps,
+                  "fused_evaluation": [{k: r[k] for k in (
+                      "step", "heldout_tango_wer", "heldout_tango_cer")}
+                      for r in evals],
+                  "test_fused": results["lm_cli_test"],
+                  "test_weight_0": results["lm_cli_test_weight_0"],
+                  "export": {"has_lm": meta["has_lm"], "beam": meta["beam"]},
+                  "served": served, "mode_seconds": {
+                      k: v for k, v in seconds.items() if k != "train_lm"}}
+    res["launches"] = counts
+    res["launches_expected"] = want
+    log(res)
+    ok_train = (dims == LM_DIMS and len(nlls) == 10
+                and all(map(math.isfinite, nlls)) and nlls[-1] < nlls[0])
+    if not ok_train:
+        raise SystemExit("train_lm failed: dims, logged NLL or its fall")
+    k3 = res["kernels_at_lm_shape"]
+    if not (k3["fwd_max_abs_diff"] <= LSTM_FWD_TOL
+            and k3["dgx_l2rel"] <= LSTM_GRAD_L2REL
+            and k3["du_l2rel"] <= LSTM_GRAD_L2REL
+            and k3["max_abs_diff_to_kernel_layer"] <= 1e-4):
+        raise SystemExit("K3/K3b disagree at the LM's shape")
+    if not res["parity"]["ok"]:
+        raise SystemExit("the LM's sequence/step or card/CPU parity failed")
+    cvc = res["cuda_vs_cpu"]
+    if not (cvc["same_text"] and cvc["max_score_diff"] <= PARITY_TOL):
+        raise SystemExit("fused serving: cuda and cpu disagree")
+    if not res["fused_serving"]["hot_swap_keeps_bundle_lm"]:
+        raise SystemExit("a hot-swapped tree lost the bundle's LM")
+    if not (meta["has_lm"] and meta["beam"]["lm_weight"] == LM_WEIGHT
+            and len(evals) == 1 and math.isfinite(evals[0]["heldout_wer_mean"])
+            and math.isfinite(results["lm_cli_test"]["tango"]["wer"])):
+        raise SystemExit("the CLI's fused train / test / export failed")
+    check_results(served, 4, CharTokenizer.ascii_default())
+    if counts != want:
+        raise SystemExit(f"LM fusion launch counts {counts}, want {want}")
+    return res
+
+
 def last_line(torch, kind) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2661,6 +3127,7 @@ def main() -> int:
     mono_test = timed(phase_mono_test, torch)
     prep = timed(phase_data_prep, torch, smi)
     timed(phase_acceptance, torch)
+    lm = timed(phase_lm_fusion, torch, peaks, serving, smi)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],
@@ -2679,24 +3146,33 @@ def main() -> int:
         "maml_entry_vgg_blstm": maml_entry["vgg_blstm_maml"]["launches"][k]}
     mono_paths = lambda k: {"mono_step": mono["launches"][k],  # noqa: E731
                             "mono_entry": mono_entry["launches"][k]}
-    lstm_paths = lambda k: {**mono_paths(k), **new_paths(k)}  # noqa: E731
+    # phase 18: train_lm, fused serving and the fused CLI modes (K3/K3b:
+    # train_lm only; the search steps the LM in plain PyTorch)
+    lm_paths = lambda k: {path: c[k]  # noqa: E731
+                          for path, c in lm["launches"].items()
+                          if c[k] or k in ("k3", "k3b")}
+    lstm_paths = lambda k: {**mono_paths(k), **new_paths(k),  # noqa: E731
+                            **lm_paths(k)}
     prep_paths = {path: c["k1"] for path, c in prep["launches"].items()}
     k1_paths = {"serving": serving["k1_launches"],
                 **{f"meta_step_{c['tasks']}x{c['shots']}": c["k1_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k1_launches"], **mono_paths("k1"),
-                **maml_paths("k1"), **new_paths("k1"), **prep_paths}
+                **maml_paths("k1"), **new_paths("k1"), **prep_paths,
+                **lm_paths("k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
                 **maml_paths("k2"), **new_paths("k2"),
-                "prep_feats_train": prep["launches"]["prep_feats_train"]["k2"]}
+                "prep_feats_train": prep["launches"]["prep_feats_train"]["k2"],
+                **lm_paths("k2")}
     k2_task = k2["shapes"]["per_task"]
     k2b_shapes = k2b["shapes"]
     k2b_task = k2b_shapes["fused"]     # [16, 99, 65]: config4's per-task batch
     k3_shapes = k3["shapes"]
     k3_main = k3_shapes["config1"]
     yard = k3["library_yardstick"]
+    at_lm = lm["kernels_at_lm_shape"]
     lstm_rows = [{
         "name": name, "route": "cuda",
         "source": "metaasr_tpu_torch/csrc/lstm.cu",
@@ -2711,7 +3187,16 @@ def main() -> int:
         "dependent_steps": k3_main["dependent_steps"],
         "cluster": k3_main["plan"]["cluster"],
         "tile": k3_main["plan"]["tile"],
-        "library_ms": yard[lib_key], "library_is": lib_what, **extra}
+        "library_ms": yard[lib_key], "library_is": lib_what,
+        "lm_shape": {"shape_tbh": at_lm["shape_tbh"], "plan": at_lm["plan"],
+                     "tiles": at_lm["tiles"], "ms": at_lm[f"{tag}_ms"],
+                     "device_ms": at_lm[f"{tag}_device_ms"],
+                     "plain_ms": at_lm[f"plain_{tag}_ms"],
+                     "bound_ms": at_lm[f"{tag}_bound_ms"],
+                     "bound_by": at_lm[f"{tag}_bound_by"],
+                     "nn_lstm_ms": at_lm[f"nn_lstm_{tag}_ms"],
+                     "kernel_layer_ms": at_lm[f"kernel_layer_{tag}_ms"]},
+        **extra}
         for name, line, key, err, tag, lib_key, lib_what, extra in (
             ("lstm_forward", 48, "k3", "fwd_max_abs_diff", "fwd",
              "nn_lstm_fwd_ms",

@@ -6,11 +6,11 @@
         [-o key=value]
     python -m metaasr_tpu_torch.cli --mode adapt|test|transcribe --workdir WD \
         [--use-best | --avg-last N] [--decode-mode greedy|beam]
-        [--dump-nbest K]
+        [--dump-nbest K] [--lm-ckpt LM.npz --lm-weight W]
     python -m metaasr_tpu_torch.cli --mode export --workdir WD \
         [--export-dir DIR] [--export-buckets 8x48000,...]
         [--export-weights-dtype float32|bfloat16]
-        [--export-decode auto|beam|greedy]
+        [--export-decode auto|beam|greedy] [--lm-ckpt LM.npz --lm-weight W]
     python -m metaasr_tpu_torch.cli --mode serve --bundle DIR \
         --wav a.wav [b.wav ...]
 
@@ -29,7 +29,10 @@ The other modes load the latest checkpoint (``--use-best``: the best;
 and decodes the rest of it (``hyps_<accent>.jsonl``); ``test`` decodes the
 held-out accents without adaptation, or a baseline's dev set; ``transcribe``
 decodes every loaded accent without adaptation and reports WER where the
-manifests carry transcripts; ``export`` writes a serving bundle. These modes
+manifests carry transcripts; ``export`` writes a serving bundle, with the
+shallow-fusion LM of ``--lm-ckpt`` (``scripts/train_lm.py``) when its
+``--lm-weight`` is not 0; the beam decodes of ``train``'s held-out
+evaluation, ``adapt``, ``test`` and ``transcribe`` fuse it too. These modes
 and a resumed ``train`` run under the workdir's recorded ``config.yaml``
 when ``--config`` is absent; only ``train`` writes it. ``serve``
 transcribes WAV files with a bundle: one the port wrote records its config;
@@ -178,6 +181,12 @@ def main(argv=None):
     p.add_argument("--profile", type=str, default=None,
                    help="train: write a torch.profiler Chrome trace into "
                    "this directory")
+    p.add_argument("--lm-ckpt", type=str, default=None,
+                   help="shallow-fusion LM npz (scripts/train_lm.py) for "
+                   "beam decode; shorthand for -o train.lm_ckpt=...")
+    p.add_argument("--lm-weight", type=float, default=None,
+                   help="shallow-fusion weight (0 = off); shorthand for "
+                   "-o train.lm_weight=...")
     p.add_argument("--mesh-tasks", type=int, default=0,
                    help="not ported yet (ROADMAP.md): refused")
     t = p.add_argument_group("train")
@@ -288,6 +297,10 @@ def _run_config(args, overrides: dict) -> Config:
         overrides["data.seed"] = args.seed
     if args.data_dir:
         overrides["data.data_dir"] = args.data_dir
+    if args.lm_ckpt is not None:
+        overrides["train.lm_ckpt"] = args.lm_ckpt
+    if args.lm_weight is not None:
+        overrides["train.lm_weight"] = args.lm_weight
     return load_config(args.config, overrides)
 
 
@@ -341,16 +354,21 @@ def _meta_test(args, cfg: Config) -> int:
                                      map_location=trainer.device)
     if args.mode == "export":
         from metaasr_tpu_torch.serve.export import write_bundle
+        from metaasr_tpu_torch.train.checkpoint import load_params_npz
         from metaasr_tpu_torch.weights import params_to_flax
 
         out_dir = args.export_dir or os.path.join(args.workdir, "export")
         buckets = [tuple(int(v) for v in b.split("x"))
                    for b in args.export_buckets.split(",")]
+        lm_params = None
+        if cfg.train.lm_ckpt and cfg.train.lm_weight != 0.0:
+            lm_params = load_params_npz(cfg.train.lm_ckpt)
         manifest = write_bundle(
             out_dir, cfg, params_to_flax(split_lr(params)[0],
                                          cfg.model.num_heads),
             tok, buckets, weights_dtype=args.export_weights_dtype,
-            mode=None if args.export_decode == "auto" else args.export_decode)
+            mode=None if args.export_decode == "auto" else args.export_decode,
+            lm_params=lm_params)
         print(json.dumps({"export_dir": out_dir, "files": manifest["files"],
                           "mode": manifest["mode"],
                           "platforms": manifest["platforms"]}, indent=2))

@@ -2,9 +2,12 @@
 ``metaasr_tpu/decode/beam_search.py``).
 
 Same fixed-shape hypothesis state [B, K, ...] and the same scoring:
-(1-w)*att_cumlogp + w*ctc_prefix_logp (+ length_penalty * length), with
-Graves CTC prefix scores for every (hypothesis x candidate) pair and an
-eos candidate scoring the hypothesis as a complete CTC sequence. The decode
+(1-w)*att_cumlogp + w*ctc_prefix_logp (+ lm_weight * lm_cumlogp, shallow
+fusion) (+ length_penalty * length), with Graves CTC prefix scores for
+every (hypothesis x candidate) pair and an eos candidate scoring the
+hypothesis as a complete CTC sequence. The fused LM (``models/lm.py``)
+steps on the same token stream as the decoder, one plain PyTorch step per
+beam step; its state rows are gathered like the KV caches. The decode
 loop is a host loop that stops once every hypothesis has finished (the
 reference's early-exit while loop); the CTC prefix recursion is a host loop
 over the encoder frames that are valid in at least one row.
@@ -23,11 +26,10 @@ from dataclasses import dataclass
 import torch
 
 from metaasr_tpu_torch.constants import BLANK_ID
+from metaasr_tpu_torch.models.lm import make_lm_step_fn
 from metaasr_tpu_torch.utils.padding import make_non_pad_mask
 
 NEG = -1.0e9
-LM_FUSION_TODO = ("LM shallow fusion is not ported yet "
-                  "(ROADMAP.md, port queue: 'LM shallow fusion')")
 
 
 def _lae(a, b):
@@ -164,19 +166,21 @@ def ctc_prefix_init(ctc_logp, enc_lens, k: int, blank_id: int):
 
 
 def batched_beam_search(decoder_step_fn, init_caches, enc_lens, ctc_logits,
-                        eos_id: int, cfg: BeamSearchConfig):
+                        eos_id: int, cfg: BeamSearchConfig,
+                        lm_step_fn=None, init_lm_state=None):
     """Run the search.
 
     decoder_step_fn(tokens [N, 1], step, caches) -> (log_probs [N, V],
     caches) — or (log_probs, caches, cross_attn [N, T]) when
     cfg.coverage_weight != 0 — with N = B*K; caches are lists of
     {'k','v': [N, L, H, Dh]} (L >= max_len).
+    lm_step_fn(tokens [N, 1], lm_state) -> (log_probs [N, V], lm_state):
+    the shallow-fusion LM, used when cfg.lm_weight != 0; its state is a
+    dict of [N, ...] tensors (``init_lm_state``).
 
     Returns dict: tokens [B, K, L], lengths [B, K], scores [B, K],
     finished [B, K], sorted best-first; tokens exclude sos and eos.
     """
-    if cfg.lm_weight != 0.0:
-        raise NotImplementedError(LM_FUSION_TODO)
     bsz, t_len, vocab = ctc_logits.shape
     k = cfg.beam_size
     l_max = cfg.max_len
@@ -200,6 +204,14 @@ def batched_beam_search(decoder_step_fn, init_caches, enc_lens, ctc_logits,
     use_cov = cfg.coverage_weight != 0.0
     if use_cov:
         state["coverage"] = torch.zeros((bsz, k, t_len), device=dev)
+    use_lm = cfg.lm_weight != 0.0 and lm_step_fn is not None
+    if use_lm:
+        if init_lm_state is None:
+            raise ValueError("lm_weight set but no init_lm_state given")
+        lm_state = init_lm_state
+        # the cumulative LM log-prob of each hypothesis, like att_cum: the
+        # score is rebuilt from cumulative trackers every step
+        state["lm_cum"] = torch.zeros((bsz, k), device=dev)
 
     req = effective_ctc_candidates(vocab, cfg.ctc_candidates)
     n_cand = vocab if req <= 0 else min(req + 1, vocab)  # +1: eos on top
@@ -219,6 +231,10 @@ def batched_beam_search(decoder_step_fn, init_caches, enc_lens, ctc_logits,
         else:
             att_logp, new_caches = out
         att_logp = att_logp.reshape(bsz, k, vocab)
+        if use_lm:
+            lm_logp, lm_new = lm_step_fn(state["last"].reshape(bsz * k, 1),
+                                         lm_state)
+            lm_logp = lm_logp.reshape(bsz, k, vocab)
 
         # 2) candidates: the whole vocabulary, or the top-N by attention
         #    score plus eos, all CTC prefix-scored
@@ -246,6 +262,11 @@ def batched_beam_search(decoder_step_fn, init_caches, enc_lens, ctc_logits,
         # an eos candidate scores the hypothesis as a complete sequence
         cand_ctc = torch.where(is_eos_slot, ctc_complete[:, :, None], ctc_ext)
         scores = (1 - w) * att_new + w * cand_ctc
+        if use_lm:
+            # the extended hypothesis' cumulative LM log-prob (eos included)
+            cand_lm = lm_logp if cand is None else lm_logp.gather(2, cand)
+            scores = scores + cfg.lm_weight * (state["lm_cum"][:, :, None]
+                                               + cand_lm)
         scores = scores + cfg.length_penalty * (
             state["length"] + 1)[:, :, None].to(torch.float32)
         if step_idx < cfg.min_len:
@@ -284,6 +305,11 @@ def batched_beam_search(decoder_step_fn, init_caches, enc_lens, ctc_logits,
         new_att = torch.where(
             parent_finished, parent_att,
             parent_att + sel(att_logp).gather(2, token[:, :, None])[..., 0])
+        if use_lm:
+            parent_lm = sel(state["lm_cum"])
+            new_lm_cum = torch.where(
+                parent_finished, parent_lm,
+                parent_lm + sel(lm_logp).gather(2, token[:, :, None])[..., 0])
 
         def sel_cand(x):                                      # [B, K, C, T]
             p = sel(x)
@@ -310,6 +336,16 @@ def batched_beam_search(decoder_step_fn, init_caches, enc_lens, ctc_logits,
         rows = (row_base + parent).reshape(-1)
         caches = [{name: c.index_select(0, rows) for name, c in layer.items()}
                   for layer in new_caches]
+        if use_lm:
+            # finished hypotheses keep their old LM carry (the choice is
+            # made per row before the gather), then the parent rows
+            fin_rows = state["finished"].reshape(-1)
+            lm_state = {
+                name: torch.where(
+                    fin_rows.reshape((-1,) + (1,) * (new.dim() - 1)),
+                    lm_state[name], new).index_select(0, rows)
+                for name, new in lm_new.items()}
+            new_state["lm_cum"] = new_lm_cum
         state = new_state
 
     final = state["score"]
@@ -330,11 +366,10 @@ def batched_beam_search(decoder_step_fn, init_caches, enc_lens, ctc_logits,
 
 
 def beam_search_transformer(model, feats, feat_lens, eos_id: int,
-                            cfg: BeamSearchConfig):
+                            cfg: BeamSearchConfig, lm_model=None):
     """Encode + CTC head + batched search for a port ``TransformerASR``
-    (feats [B, T, D])."""
-    if cfg.lm_weight != 0.0:
-        raise NotImplementedError(LM_FUSION_TODO)
+    (feats [B, T, D]); ``lm_model``, an ``LSTMLM`` on the same device, is
+    fused when cfg.lm_weight != 0."""
     k = cfg.beam_size
     enc, enc_lens = model.encode(feats, feat_lens)
     ctc_logits = model.apply_ctc_head(enc)
@@ -350,5 +385,10 @@ def beam_search_transformer(model, feats, feat_lens, eos_id: int,
         return model.decoder_step(tokens, step, caches, enc_lens_rep, cross,
                                   return_attn=want_attn)
 
+    lm_step_fn = init_lm_state = None
+    if cfg.lm_weight != 0.0 and lm_model is not None:
+        lm_step_fn = make_lm_step_fn(lm_model)
+        init_lm_state = lm_model.init_state(bsz * k)
     return batched_beam_search(decoder_step_fn, caches, enc_lens, ctc_logits,
-                               eos_id, cfg)
+                               eos_id, cfg, lm_step_fn=lm_step_fn,
+                               init_lm_state=init_lm_state)

@@ -129,7 +129,8 @@ def plan(bsz: int, hidden: int, device, tile: int = 0) -> dict:
             rc = _library().metaasr_lstm_plan(bsz, hidden, tile, out)
         if rc != 0:
             raise RuntimeError(f"no thread-block cluster of the LSTM kernels "
-                               f"can run at B={bsz}, H={hidden}: cudaError {rc}")
+                               f"can run at B={bsz}, H={hidden}: cudaError {rc} "
+                               f"(they take H a multiple of 4 up to 5,808)")
         got = _plans[key] = dict(zip(PLAN_KEYS, out))
     return got
 

@@ -8,7 +8,10 @@ StableHLO program per bucket (``*.jexp``); the port ignores those and runs
 its own modules, the fbank kernel included.
 
 :func:`write_bundle` writes the same non-program files, so a bundle the
-port writes loads in either package's reader. Its ``meta.json`` also
+port writes loads in either package's reader. A bundle with a
+shallow-fusion LM carries the LM's Flax-layout leaves under ``__lm__/...``
+in ``params.npz`` (cast like the model's in a bf16 bundle) and
+``has_lm: true``, as the reference's do. Its ``meta.json`` also
 records the model dims and dtype (``model``), the front-end (``frontend``:
 CMVN mode, mel bins, sample rate; global CMVN statistics are copied into
 the bundle) and every beam option, so :class:`ServingDecoder` needs no
@@ -36,12 +39,18 @@ from metaasr_tpu_torch.config import Config
 from metaasr_tpu_torch.data.bpe import BPETokenizer
 from metaasr_tpu_torch.data.tokenizer import _BaseTokenizer
 from metaasr_tpu_torch.decode.beam_search import (
-    LM_FUSION_TODO,
     BeamSearchConfig,
     beam_search_transformer,
 )
+from metaasr_tpu_torch.models.lm import lm_from_flax
 from metaasr_tpu_torch.task import ASRTask
-from metaasr_tpu_torch.weights import flatten_tree, flax_to_state_dict
+from metaasr_tpu_torch.weights import (
+    LM_KEY,
+    flatten_tree,
+    flax_to_state_dict,
+    split_lm,
+    unflatten,
+)
 
 BUNDLE_VERSION = 2
 COMPATIBLE_BUNDLE_VERSIONS = (1, 2)
@@ -84,19 +93,18 @@ def load_bundle_params(path: str) -> dict:
     return out
 
 
-def beam_config_from_train(cfg) -> BeamSearchConfig:
+def beam_config_from_train(cfg, lm_active: bool = False) -> BeamSearchConfig:
     """The joint beam search's options from ``cfg.train`` (max_len from
     ``cfg.data.max_tokens``), as the reference's decode and export build
-    them."""
+    them; ``train.lm_weight`` goes in only when an LM is active."""
     t = cfg.train
-    if t.lm_weight != 0.0 or t.lm_ckpt:
-        raise NotImplementedError(LM_FUSION_TODO)
     return BeamSearchConfig(
         beam_size=t.beam_size, max_len=cfg.data.max_tokens,
         ctc_weight=t.decode_ctc_weight, length_penalty=t.length_penalty,
         ctc_candidates=t.ctc_candidates, normalize_final=t.normalize_final,
         coverage_weight=t.coverage_weight, coverage_tau=t.coverage_tau,
-        min_len=t.beam_min_len)
+        min_len=t.beam_min_len,
+        lm_weight=t.lm_weight if lm_active else 0.0)
 
 
 # runtime backends, chosen by whoever serves (ASRTask.require_full_autodiff
@@ -108,21 +116,30 @@ _GLOBAL_CMVN_FILE = "cmvn_stats.json"
 def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
                  buckets: Sequence[tuple[int, int]],
                  weights_dtype: str = "float32",
-                 mode: str | None = None) -> dict:
+                 mode: str | None = None, lm_params=None) -> dict:
     """Write params.npz, tokenizer.json and meta.json for a Flax-layout
     params tree (no programs: ``files`` is empty). ``mode`` is the decode
     algorithm, "beam" or "greedy"; None picks beam for the transformer and
-    greedy for the CTC-only VGG-BLSTM. Returns the manifest."""
+    greedy for the CTC-only VGG-BLSTM. ``lm_params``, a Flax-layout LM
+    tree, is fused (stored under ``__lm__``) when ``train.lm_weight`` is
+    not 0. Returns the manifest."""
     if mode is None:
         mode = "beam" if cfg.model.arch == "transformer" else "greedy"
+    if mode == "greedy" and lm_params is not None:
+        raise ValueError("shallow fusion needs the beam search; greedy "
+                         "export does not take an LM")
     _check_mode(mode, cfg.model.arch)
     if weights_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"weights_dtype must be float32 or bfloat16, "
                          f"got {weights_dtype!r}")
-    beam = beam_config_from_train(cfg)
+    has_lm = lm_params is not None and cfg.train.lm_weight != 0.0
+    beam = beam_config_from_train(cfg, lm_active=has_lm)
     os.makedirs(out_dir, exist_ok=True)
+    flat = flatten_tree(params)
+    if has_lm:
+        flat.update(flatten_tree(lm_params, LM_KEY))
     arrays, bf16_keys = {}, []
-    for key, a in flatten_tree(params).items():
+    for key, a in flat.items():
         if weights_dtype == "bfloat16" and a.dtype.kind == "f":
             a = _f32_to_bf16_bits(a)
             bf16_keys.append(key)
@@ -151,7 +168,7 @@ def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
         "sos_eos_id": tokenizer.sos_eos_id,
         "sample_rate": cfg.frontend.sample_rate,
         "num_mel_bins": cfg.frontend.num_mel_bins,
-        "has_lm": False,
+        "has_lm": has_lm,
         "beam": dataclasses.asdict(beam),
         "model": model,
         "frontend": frontend,
@@ -210,11 +227,12 @@ class ServingDecoder:
     ``transcribe`` pads each request to the smallest bucket that fits,
     runs fbank (K1) -> CMVN -> encoder -> CTC head -> joint beam search
     (or greedy CTC for a greedy bundle; the VGG-BLSTM's recurrences go
-    through K3) and detokenizes. ``params`` hot-swaps
-    an adapted Flax-layout tree; the converted model is cached for the last
-    tree object passed. ``cfg``, the run's config, is needed only for a
-    bundle that does not record its own (the JAX package's); what a bundle
-    records overrides it.
+    through K3) and detokenizes. A bundle marked ``has_lm`` fuses its LM
+    into the search. ``params`` hot-swaps an adapted Flax-layout tree; a
+    tree without ``__lm__`` leaves is served with the bundle's LM; the
+    converted modules are cached for the last tree object passed. ``cfg``,
+    the run's config, is needed only for a bundle that does not record its
+    own (the JAX package's); what a bundle records overrides it.
     """
 
     def __init__(self, bundle_dir: str, cfg=None, device=None):
@@ -225,8 +243,6 @@ class ServingDecoder:
                 f"bundle version {self.meta['version']} not in "
                 f"{COMPATIBLE_BUNDLE_VERSIONS}")
         beam = self.meta["beam"]
-        if self.meta["has_lm"] or beam.get("lm_weight", 0.0) != 0.0:
-            raise NotImplementedError(LM_FUSION_TODO)
         self.tokenizer = _load_tokenizer(bundle_dir, self.meta["vocab_kind"])
         cfg = bundle_config(bundle_dir, self.meta, cfg)
         self.cfg = cfg
@@ -241,8 +257,15 @@ class ServingDecoder:
                                             **beam)
         self.buckets = sorted(tuple(int(v) for v in b)
                               for b in self.meta["buckets"])
-        self.model = self._build_model(load_bundle_params(
+        tree, lm_tree = split_lm(load_bundle_params(
             os.path.join(bundle_dir, "params.npz")))
+        self.lm = None
+        if self.meta["has_lm"]:
+            if lm_tree is None:
+                raise ValueError(f"the bundle {bundle_dir} is marked has_lm "
+                                 "but its params.npz holds no __lm__ leaves")
+            self.lm = self._build_lm(lm_tree)
+        self.model = self._build_model(tree)
         self._swap_cache = None
         self._swap_lock = threading.Lock()
 
@@ -257,6 +280,15 @@ class ServingDecoder:
         model.load_state_dict(sd)
         return model
 
+    def _build_lm(self, tree):
+        """The fused LM on the serving device; a bf16 bundle's LM leaves
+        are bf16 values, and a hot-swapped LM is rounded the same way. It
+        computes in fp32."""
+        if self.weights_dtype == "bfloat16":
+            tree = unflatten({k: round_to_bf16(a)
+                              for k, a in flatten_tree(tree).items()})
+        return lm_from_flax(tree, self.device)
+
     def _pick_bucket(self, n: int, width: int):
         fits = [b for b in self.buckets if b[0] >= n and b[1] >= width]
         if not fits:
@@ -266,16 +298,19 @@ class ServingDecoder:
         return min(fits, key=lambda b: (b[0] * b[1], b))
 
     def _resolve_params(self, params):
-        """Model for a caller's tree. The single-entry cache keys on object
+        """(model, LM) for a caller's tree; a tree without ``__lm__`` leaves
+        keeps the bundle's LM. The single-entry cache keys on object
         identity: treat a tree as immutable once passed."""
         if params is None:
-            return self.model
+            return self.model, self.lm
         with self._swap_lock:
             if self._swap_cache is not None and self._swap_cache[0] is params:
                 return self._swap_cache[1]
-            model = self._build_model(params)
-            self._swap_cache = (params, model)  # holds params: id stays live
-            return model
+            tree, lm_tree = split_lm(params)
+            built = (self._build_model(tree),
+                     self.lm if lm_tree is None else self._build_lm(lm_tree))
+            self._swap_cache = (params, built)  # holds params: id stays live
+            return built
 
     def transcribe(self, xs: Sequence[np.ndarray], params: Any = None,
                    nbest: int = 1) -> list[dict]:
@@ -320,21 +355,21 @@ class ServingDecoder:
         # framing needs one full window); _read drops their outputs
         for j in range(n, bsz):
             x[j] = x[n - 1]
-        model = self._resolve_params(params)
-        return ((bsz, width), model,
+        modules = self._resolve_params(params)
+        return ((bsz, width), modules,
                 torch.from_numpy(x).to(self.device),
                 torch.from_numpy(lens).to(self.device), n)
 
     def _dispatch_staged(self, staged):
         """Run the decode on staged inputs -> (outputs on the device, n)."""
-        _, model, x, lens, n = staged
+        _, (model, lm), x, lens, n = staged
         with torch.inference_mode():
             if self.from_feats:
                 feats, feat_lens = x, lens
             else:
                 feats, feat_lens = self.task.features(x, lens)
             out = decode_features(self.task, model, feats, feat_lens,
-                                  self.mode, self.beam_cfg)
+                                  self.mode, self.beam_cfg, lm)
         return out, n
 
     def _dispatch(self, xs, params):
@@ -345,8 +380,9 @@ class ServingDecoder:
 
 
 def decode_features(task: ASRTask, model, feats, feat_lens, mode: str,
-                    beam_cfg: BeamSearchConfig) -> dict:
+                    beam_cfg: BeamSearchConfig, lm=None) -> dict:
     """Greedy CTC (``mode="greedy"``) or the joint beam search of ``model``
+    (with ``lm``, an ``LSTMLM``, fused when ``beam_cfg.lm_weight`` is not 0)
     on features -> {"tokens" [B, K, L], "lengths" [B, K], "scores" [B, K]}
     on the device, K = 1 for greedy (scores 0)."""
     with torch.inference_mode():
@@ -358,7 +394,8 @@ def decode_features(task: ASRTask, model, feats, feat_lens, mode: str,
                     "scores": torch.zeros_like(out_lens,
                                                dtype=torch.float32)[:, None]}
         return beam_search_transformer(model, feats, feat_lens,
-                                       task.sos_eos_id, beam_cfg)
+                                       task.sos_eos_id, beam_cfg,
+                                       lm_model=lm)
 
 
 def read_decoded(out: dict, n: int, tokenizer, nbest: int = 1) -> list[dict]:

@@ -10,7 +10,9 @@ a temporary file first and are renamed into place, so a reader never sees
 half a file. ``average_checkpoints`` averages the saved parameters of
 several steps (``--avg-last``). ``save_params_npz``/``load_params_npz``
 exchange parameters in the reference's flat Flax layout
-(``weights.params_to_flax``), the format ``--serve-params`` reads.
+(``weights.params_to_flax``), the format ``--serve-params`` reads;
+``save_tree_npz`` writes any Flax-layout tree as it is (the shallow-fusion
+LM's, as the reference's ``save_params_npz`` does).
 """
 
 from __future__ import annotations
@@ -122,11 +124,17 @@ def average_checkpoints(mgr: CheckpointManager, steps: list[int] | None = None,
         for k, v in acc.items()})
 
 
+def save_tree_npz(path: str, tree: dict) -> None:
+    """Flat ``a/b/c`` npz of a nested Flax-layout tree of arrays, readable
+    by both packages' ``load_params_npz``."""
+    np.savez(path, **flatten_tree(tree))
+
+
 def save_params_npz(path: str, params: dict, num_heads: int) -> None:
     """Flat ``a/b/c`` npz in the reference's Flax layout (plain or Meta-SGD
     tree), readable by both packages' ``load_params_npz`` and by
     ``--serve-params``."""
-    np.savez(path, **flatten_tree(params_to_flax(params, num_heads)))
+    save_tree_npz(path, params_to_flax(params, num_heads))
 
 
 def load_params_npz(path: str) -> dict:

@@ -18,7 +18,9 @@
 - ``decode``: greedy CTC or the joint CTC/attention beam search over a
   dataset -> WER/CER, optionally dumping hypotheses (and n-best lists) as
   JSONL. The beam search and its read-back are serving's own
-  (``serve/export.py::decode_features``, ``read_decoded``).
+  (``serve/export.py::decode_features``, ``read_decoded``); with
+  ``train.lm_ckpt`` set and ``train.lm_weight`` not 0 the search fuses that
+  LM (loaded once, onto the trainer's device).
 - ``eval_heldout``: ``meta_adapt`` + ``decode`` on every held-out accent,
   averaged over ``train.eval_support_draws`` support draws: the headline
   metric, WER after k-shot adaptation on an unseen accent.
@@ -63,12 +65,16 @@ from metaasr_tpu_torch.meta.maml import (
     split_lr,
     wrap_lr,
 )
+from metaasr_tpu_torch.models.lm import lm_from_flax
 from metaasr_tpu_torch.serve.export import (
     beam_config_from_train,
     decode_features,
     read_decoded,
 )
-from metaasr_tpu_torch.train.checkpoint import CheckpointManager
+from metaasr_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    load_params_npz,
+)
 from metaasr_tpu_torch.train.logging import MetricLogger
 from metaasr_tpu_torch.train.metrics import compute_cer, compute_wer
 from metaasr_tpu_torch.train.optimizer import (
@@ -170,6 +176,7 @@ class MetaASRTrainer:
         self._grad_fn = make_grads(task.loss_fn, algo_config(cfg),
                                    preprocess_fn=task.preprocess)
         self._decode_model = None   # built at the first beam decode
+        self._lm = None             # the fusion LM, loaded at first use
 
     def _num_samples_cap(self) -> int:
         return self.cfg.data.max_frames * 160 + 240   # frames -> samples
@@ -369,8 +376,23 @@ class MetaASRTrainer:
                 feats, feat_lens = self.task.features(
                     batch["audio"], batch["audio_lens"],
                     batch.get("cmvn_mean"), batch.get("cmvn_std"))
-            return decode_features(self.task, model, feats, feat_lens,
-                                   "beam", beam_config_from_train(self.cfg))
+            t = self.cfg.train
+            return decode_features(
+                self.task, model, feats, feat_lens, "beam",
+                beam_config_from_train(self.cfg, lm_active=bool(t.lm_ckpt)),
+                self._fusion_lm())
+
+    def _fusion_lm(self):
+        """The shallow-fusion LM of ``train.lm_ckpt`` (an npz of
+        ``scripts/train_lm.py``; dims from its shapes) on the trainer's
+        device, loaded once; None unless ``train.lm_weight`` is not 0 and
+        ``train.lm_ckpt`` is set."""
+        t = self.cfg.train
+        if t.lm_weight == 0.0 or not t.lm_ckpt:
+            return None
+        if self._lm is None:
+            self._lm = lm_from_flax(load_params_npz(t.lm_ckpt), self.device)
+        return self._lm
 
     def _beam_read(self, out: dict, nbest: int = 1):
         """Read back one beam batch -> (top hypothesis per utterance, the

@@ -25,6 +25,13 @@ Embed ``embedding``           ``weight``
 A Meta-SGD tree ``{"model": ..., "inner_lr": ...}`` (one learned inner rate
 per model leaf) converts both ways too: the rates keep their scalar values
 and take their leaf's name (:func:`params_to_flax`, :func:`flax_to_params`).
+
+The shallow-fusion LM (``models/lm.py``) keeps the Flax names at the top
+level (``embed``, ``input_proj_{i}``, ``recurrent_{i}``, ``out_proj``) and
+has its own pair, :func:`flax_to_lm_state_dict` and
+:func:`lm_state_dict_to_flax`. A bundle carries it under ``__lm__/...``
+beside the ASR model's leaves; :func:`split_lm` takes it off before the
+model's tree is converted.
 """
 
 from __future__ import annotations
@@ -226,3 +233,48 @@ def random_state_dict(model: torch.nn.Module, seed: int) -> dict[str, torch.Tens
             a = rng.standard_normal(shape) / np.sqrt(fan_in)
         sd[key] = torch.from_numpy(np.ascontiguousarray(a, np.float32))
     return sd
+
+
+LM_KEY = "__lm__"   # a bundle's LM subtree, as the reference names it
+
+
+def split_lm(tree) -> tuple[dict, dict | None]:
+    """A bundle's tree (nested or flat) -> (the ASR model's flat tree, the
+    LM's nested tree or None when it carries no ``__lm__`` leaves)."""
+    flat = flatten_tree(tree)
+    prefix = LM_KEY + "/"
+    lm = {k[len(prefix):]: a for k, a in flat.items() if k.startswith(prefix)}
+    asr = {k: a for k, a in flat.items() if not k.startswith(prefix)}
+    return asr, (unflatten(lm) if lm else None)
+
+
+def flax_to_lm_state_dict(tree) -> dict[str, torch.Tensor]:
+    """A Flax-layout LM tree -> ``LSTMLM``'s state_dict: Dense kernels
+    [in, out] become contiguous fp32 ``weight [out, in]``, the embedding
+    and the recurrent matrices keep their layout."""
+    sd = {}
+    for key, a in flatten_tree(tree).items():
+        parts = key.split("/")
+        if parts[-1] == "kernel":
+            a, parts[-1] = a.T, "weight"
+        elif parts[-1] == "embedding":
+            parts[-1] = "weight"
+        sd[".".join(parts)] = torch.tensor(np.ascontiguousarray(a),
+                                           dtype=torch.float32)
+    return sd
+
+
+def lm_state_dict_to_flax(sd: dict[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`flax_to_lm_state_dict` (nested dict of fp32
+    numpy)."""
+    flat = {}
+    for key, t in sd.items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        parts = key.split(".")
+        if parts[-1] == "weight":
+            if parts[0] == "embed":
+                parts[-1] = "embedding"
+            else:
+                a, parts[-1] = np.ascontiguousarray(a.T), "kernel"
+        flat["/".join(parts)] = a
+    return unflatten(flat)

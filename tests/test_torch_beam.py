@@ -134,10 +134,3 @@ def test_effective_ctc_candidates_matches(vocab, req):
     assert (bs.effective_ctc_candidates(vocab, req)
             == ref_bs.effective_ctc_candidates(vocab, req))
 
-
-def test_lm_fusion_raises_not_implemented():
-    _, _, pm, feats, lens = _models()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bs.beam_search_transformer(pm, torch.from_numpy(feats),
-                                   torch.from_numpy(lens), EOS,
-                                   bs.BeamSearchConfig(lm_weight=0.3))

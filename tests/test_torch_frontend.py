@@ -174,7 +174,8 @@ def test_port_imports_neither_jax_nor_reference_package():
         "for m in ('serve.batcher', 'ops.ctc_kernel', 'meta.maml',\n"
         "          'train.meta_train', 'data.sampler', 'ops.lstm_kernel',\n"
         "          'models.vgg_blstm', 'train.mono', 'train.metrics',\n"
-        "          'scripts.prepare_data', 'scripts.acceptance', 'data.bpe'):\n"
+        "          'scripts.prepare_data', 'scripts.acceptance', 'data.bpe',\n"
+        "          'models.lm', 'scripts.train_lm'):\n"
         "    assert 'metaasr_tpu_torch.' + m in mods, mods\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO

@@ -200,15 +200,16 @@ def test_port_written_bundle_reads_in_both_packages(fp32_bundle, tmp_path):
 def test_bundle_gates(fp32_bundle, tmp_path):
     cfg, _, path = fp32_bundle
     meta = json.loads(open(os.path.join(path, "meta.json")).read())
+    # the version gate, and has_lm on a bundle without __lm__ leaves
     for name, edit, err in (
-            ("v99", {"version": 99}, ValueError),
-            ("lm", {"has_lm": True}, NotImplementedError)):
+            ("v99", {"version": 99}, "version 99"),
+            ("lm", {"has_lm": True}, "holds no __lm__ leaves")):
         d = tmp_path / name
         d.mkdir()
         for f in ("params.npz", "tokenizer.json"):
             (d / f).write_bytes(open(os.path.join(path, f), "rb").read())
         (d / "meta.json").write_text(json.dumps({**meta, **edit}))
-        with pytest.raises(err):
+        with pytest.raises(ValueError, match=err):
             ServingDecoder(str(d), _port_cfg(cfg), device="cpu")
     # a BPE vocabulary file loads as the BPE tokenizer it records
     bpe = tmp_path / "tok.json"
