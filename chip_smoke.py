@@ -194,7 +194,24 @@ Phases, one JSON line each; any failure exits non-zero:
              ``serve`` with ``--serve-params`` of an adapted npz; exact
              launch counts everywhere (K3/K3b 0 in the search).
 
-Then a line of the held-out WERs of phases 13 and 14 (random init: a
+19. conformer — ``model.encoder: conformer`` (depthwise kernel 15) at
+             config3 width under the TF32 policy: the FOMAML step of the
+             reference's conformer recipe (``meta.adapt_filter: decoder``,
+             decoder-only inner steps) at phase 6's 4 x (16 + 16) on its
+             batch, 2 warm-up, 5 timed, 1 profiled step, beside phase 6's
+             cell of the same run (ratios of ms, kernels and busy ms); one
+             full-body FOMAML step; one second-order MAML step at
+             config4's shape (full body, 2 inner steps: gradients finite,
+             the conformer's ``u_bias`` and depthwise leaves non-zero);
+             then the CLI with ``-o model.encoder=conformer`` on phase 14's
+             corpus: train (2 steps, one held-out evaluation, beam),
+             ``adapt --use-best``, ``test`` (beam), ``export`` and
+             ``serve`` of the bundle without and with ``--config`` (the
+             same transcripts); the bundle's weights at fp32 compute on
+             cuda and on the cpu under strict fp32, two short requests
+             (phase 4's bars); exact K1/K2/K2b launch counts everywhere.
+
+Then a line of the held-out WERs of phases 13, 14 and 19 (random init: a
 trend), a ``{"kernels": [...]}`` line (time, bound, launches on the main
 paths per kernel; K3/K3b also at the LM's shape) and the last line
 ``{"ok": true, "device": {...}}``.
@@ -203,8 +220,8 @@ Precision: the phases that time entry points run under the port's own
 policy (``metaasr_tpu_torch/device.py``, printed on its own line); TF32 is
 off only where the card is held against a plain version or the CPU
 (phases 2, 4, 5, 8, 11, the small-model parity checks of phases 9 and
-12, and phase 18's kernels at the LM's shape, LM parity and cuda/cpu
-serving), through ``strict_fp32``.
+12, phase 18's kernels at the LM's shape, LM parity and cuda/cpu serving,
+and phase 19's cuda/cpu serving), through ``strict_fp32``.
 
 Four more modes, each needing one card:
 
@@ -348,7 +365,8 @@ def precision_line(torch) -> dict:
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "strict_fp32_in": "phases 2, 4, 5, 8, 11; small-model parity of "
                           "phases 9 and 12; phase 18's K3/K3b at the LM's "
-                          "shape, LM parity and cuda/cpu serving"}}
+                          "shape, LM parity and cuda/cpu serving; phase "
+                          "19's cuda/cpu serving"}}
 
 
 def phase_build():
@@ -2865,6 +2883,311 @@ def phase_lm_fusion(torch, peaks, serving, smi):
     return res
 
 
+# ------------------------------------------------------- the conformer ----
+
+CONFORMER_SHAPE = (4, 16)   # phase 6's 4 x (16 + 16) cell
+SHORT_SERVE_UTTS = 2        # the bundle's requests served on cuda and cpu
+
+
+def config3_conformer():
+    """config3 at full width with ``model.encoder: conformer`` (depthwise
+    kernel 15) and the reference's conformer recipe, decoder-only inner
+    adaptation (``meta.adapt_filter: decoder``)."""
+    cfg, tok = config3_train()
+    cfg.model.encoder, cfg.model.conformer_kernel = "conformer", 15
+    cfg.meta.adapt_filter = "decoder"
+    return cfg, tok
+
+
+def conformer_step(torch, cfg, tok, mb, warmup, timed, profile=False):
+    """``warmup`` + ``timed`` meta-steps (maml_grads + Adam/Noam) of
+    ``cfg`` on ``mb`` from seeded weights, the launch counts zeroed first,
+    and with ``profile`` one more step under the profiler -> readings
+    (``grads``: the last step's gradients)."""
+    from metaasr_tpu_torch.meta.maml import fold_in, maml_grads
+    from metaasr_tpu_torch.task import ASRTask
+    from metaasr_tpu_torch.train.meta_train import algo_config
+    from metaasr_tpu_torch.train.optimizer import apply_updates, make_optimizer
+
+    task = ASRTask(cfg, tok.sos_eos_id, device=DEVICE)
+    grad_fn = maml_grads(task.loss_fn, algo_config(cfg), task.preprocess)
+    opt = make_optimizer(cfg.optimizer, cfg.model.d_model)
+    st = {"params": task.init_params(0)}
+    st["opt"] = opt.init(st["params"])
+    losses = []
+
+    def one_step(i):
+        grads, metrics = grad_fn(st["params"], mb, fold_in(0, i))
+        updates, st["opt"] = opt.update(grads, st["opt"], st["params"])
+        st["params"] = apply_updates(st["params"], updates)
+        losses.append(metrics["meta_loss"])
+        st["grads"] = grads
+
+    zero_counts()
+    for i in range(warmup):
+        one_step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(warmup, warmup + timed):
+        t0 = time.perf_counter()
+        one_step(i)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    prof = (device_busy(torch, lambda: one_step(warmup + timed))
+            if profile else None)
+    return {"steps": warmup + timed + int(profile), "times": times,
+            "peak_mem_gb": peak / 1e9, "prof": prof,
+            "meta_loss": [float(x) for x in losses], "grads": st["grads"],
+            "launches": all_counts()}
+
+
+def conformer_cli(torch):
+    """The CLI at config3 width with ``-o model.encoder=conformer`` on phase
+    14's corpus: train (2 steps, one held-out evaluation) -> adapt
+    --use-best (beam) -> test (beam) -> export -> serve the bundle without
+    and with --config; then the bundle's weights served at fp32 compute on
+    cuda and on the cpu (strict fp32), two short requests."""
+    from metaasr_tpu_torch.config import load_config
+    from metaasr_tpu_torch.data.audio_io import load_wav
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+    from metaasr_tpu_torch.serve.export import ServingDecoder
+
+    config_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs", "config3_fomaml.yaml")
+    steps, draws, eval_utts, utts = 2, 1, 8, 16
+    seconds, counts = {}, {}
+
+    def cli(path, argv):
+        zero_counts()
+        out, seconds[path] = run_cli(argv)
+        counts[path] = all_counts()
+        return out
+
+    with tempfile.TemporaryDirectory() as d:
+        data, wd = os.path.join(d, "data"), os.path.join(d, "wd")
+        generate_dataset(data, utts_per_accent=utts, words_per_utt=(2, 4),
+                         seed=0)
+        cli("conformer_cli_train", [
+            "--mode", "train", "--config", config_path, "--data-dir", data,
+            "--workdir", wd, "--max-steps", str(steps),
+            "-o", "model.encoder=conformer",
+            "-o", "data.heldout_accents=tango",
+            "-o", f"train.eval_every={steps}",
+            "-o", f"train.eval_support_draws={draws}",
+            "-o", f"train.eval_max_utts={eval_utts}",
+            "-o", "train.eval_decode_mode=beam", "-o", "train.log_every=1",
+            "-o", "train.ckpt_every=1000"])
+        with open(os.path.join(wd, "logs", "scalars.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        cfg_run = load_config(os.path.join(wd, "config.yaml"))
+        cli("conformer_cli_adapt", ["--mode", "adapt", "--workdir", wd,
+                                    "--use-best", "--decode-mode", "beam"])
+        with open(os.path.join(wd, "adapt_results.json")) as f:
+            adapt_results = json.load(f)
+        cli("conformer_cli_test", ["--mode", "test", "--workdir", wd,
+                                   "--decode-mode", "beam"])
+        with open(os.path.join(wd, "test_results.json")) as f:
+            test_results = json.load(f)
+        bundle = os.path.join(d, "bundle")
+        export = json.loads(cli("conformer_cli_export", [
+            "--mode", "export", "--workdir", wd, "--export-dir", bundle,
+            "--export-buckets", "4x96000"]))
+        with open(os.path.join(bundle, "meta.json")) as f:
+            meta = json.load(f)
+        wavs = [os.path.join(data, "wav", "tango", f"tango_000{i}.wav")
+                for i in range(4)]
+        served = {}
+        for path, extra in (("conformer_cli_serve_bundle", []),
+                            ("conformer_cli_serve_bundle_config",
+                             ["--config", os.path.join(wd, "config.yaml")])):
+            served[path] = [json.loads(line) for line in cli(path, [
+                "--mode", "serve", "--bundle", bundle, "--wav", *wavs,
+                "--dump-nbest", "2", *extra]).splitlines()]
+        # the bundle's weights at fp32 compute on both devices: bf16 rounds
+        # differently on the two, and 1e-4 is phase 4's fp32 bar
+        fp32_bundle = os.path.join(d, "bundle_fp32")
+        shutil.copytree(bundle, fp32_bundle)
+        meta["model"]["dtype"] = "float32"
+        with open(os.path.join(fp32_bundle, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        short = [load_wav(w) for w in wavs[:SHORT_SERVE_UTTS]]
+        with strict_fp32():
+            on = {dev: ServingDecoder(fp32_bundle, device=dev)
+                  for dev in (DEVICE, "cpu")}
+            t0 = time.perf_counter()
+            got = [on[DEVICE].transcribe([x], nbest=2)[0] for x in short]
+            cuda_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = [on["cpu"].transcribe([x], nbest=2)[0] for x in short]
+            cpu_s = time.perf_counter() - t0
+    same_text = all(
+        g["text"] == w["text"]
+        and [x["hyp"] for x in g["nbest"]] == [x["hyp"] for x in w["nbest"]]
+        for g, w in zip(got, want))
+    score_err = max(abs(a["score"] - b["score"])
+                    for g, w in zip(got, want)
+                    for a, b in zip(g["nbest"], w["nbest"]))
+    m, bsz = cfg_run.meta, cfg_run.data.batch_size
+    eval_batches = draws * -(-min(eval_utts, utts - m.k_support) // bsz)
+    zero = {"k2b": 0, "k3": 0, "k3b": 0}
+    want_counts = {
+        "conformer_cli_train": {
+            "k1": steps * 2 * m.tasks_per_batch + draws + eval_batches,
+            "k2": steps * m.tasks_per_batch * (m.inner_steps + 1)
+            + draws * m.adapt_steps, **zero},
+        "conformer_cli_adapt": {"k1": 1 + -(-(utts - m.k_support) // bsz),
+                                "k2": m.adapt_steps, **zero},
+        "conformer_cli_test": {"k1": -(-utts // bsz), "k2": 0, **zero},
+        "conformer_cli_export": {"k1": 0, "k2": 0, **zero},
+        "conformer_cli_serve_bundle": {"k1": 1, "k2": 0, **zero},
+        "conformer_cli_serve_bundle_config": {"k1": 1, "k2": 0, **zero}}
+    evals = [r for r in recs if "heldout_wer_mean" in r]
+    out = {"encoder": meta["model"]["encoder"],
+           "conformer_kernel": meta["model"]["conformer_kernel"],
+           "recorded_encoder": cfg_run.model.encoder,
+           "steps": steps, "meta_loss": [r.get("meta_loss") for r in recs
+                                         if "meta_loss" in r],
+           "heldout_wer": [r["heldout_wer_mean"] for r in evals],
+           "adapt": adapt_results, "test": test_results, "export": export,
+           "served": served["conformer_cli_serve_bundle"],
+           "mode_seconds": seconds,
+           "cuda_cpu_fp32": {"same_text": same_text,
+                             "max_score_diff": score_err,
+                             "tolerance": PARITY_TOL, "cuda_s": cuda_s,
+                             "cpu_s": cpu_s,
+                             "texts": [g["text"] for g in got]},
+           "launches": counts, "launches_expected": want_counts}
+    return out, served, evals
+
+
+def phase_conformer(torch, meta):
+    """The conformer encoder at config3 width: the timed FOMAML step of
+    the reference's conformer recipe (decoder-only inner adaptation) at
+    4 x (16 + 16) beside phase 6's transformer cell ``meta``, one
+    full-body FOMAML step, one second-order MAML step at config4's shape,
+    then the CLI chain and cuda/cpu serving of its bundle."""
+    import copy
+
+    res = {"phase": "conformer",
+           "model": {"encoder": "conformer", "conformer_kernel": 15,
+                     "d_model": 256, "heads": 4, "d_ff": 2048,
+                     "layers": [12, 6], "dtype": "bfloat16"}}
+    cfg, tok = config3_conformer()
+    m_tasks, k_shot = CONFORMER_SHAPE
+    mb = bench_meta_batch(torch, m_tasks, k_shot, tok.vocab_size)
+    inner = cfg.meta.inner_steps
+
+    def want(r, inner, second_order=False):
+        n = r["steps"] * m_tasks
+        return {"k1": n * 2, "k2": n * (inner + 1),
+                "k2b": n * inner if second_order else 0, "k3": 0, "k3b": 0}
+
+    # (1) the timed step of the recipe, 2 warm-ups, 5 timed, 1 profiled
+    r = conformer_step(torch, cfg, tok, mb, 2, 5, profile=True)
+    ms = statistics.median(r["times"])
+    prof = r["prof"]
+    cell6 = next(c for c in meta["cells"]
+                 if (c["tasks"], c["shots"]) == CONFORMER_SHAPE)
+    p6 = cell6["profiled_step"]
+    res["fomaml_anil_decoder"] = {
+        "adapt_filter": cfg.meta.adapt_filter, "inner_steps": inner,
+        "grad_dtype": cfg.meta.grad_dtype, "specaug": True,
+        "tasks": m_tasks, "shots": k_shot, "steps": r["steps"],
+        "ms_per_step": ms, "ms_per_step_all": r["times"],
+        "unique_utts_per_s": m_tasks * 2 * k_shot / (ms / 1e3),
+        "presentations_per_s": m_tasks * (k_shot * inner + k_shot)
+        / (ms / 1e3),
+        "peak_mem_gb": r["peak_mem_gb"],
+        "profiled_step": {"wall_ms": prof[0], "device_busy_ms": prof[1],
+                          "cuda_kernels": prof[2],
+                          "top_kernels_ms": prof[3]},
+        "device_busy_share": None if prof[1] is None else prof[1] / ms,
+        "vs_phase6_transformer_4x16": {
+            "ms_per_step": cell6["ms_per_step"],
+            "cuda_kernels": p6["cuda_kernels"],
+            "device_busy_ms": p6["device_busy_ms"],
+            "ratio_ms": ms / cell6["ms_per_step"],
+            "ratio_kernels": prof[2] / p6["cuda_kernels"],
+            "ratio_busy_ms": (None if None in (prof[1], p6["device_busy_ms"])
+                              else prof[1] / p6["device_busy_ms"])},
+        "meta_loss": r["meta_loss"],
+        "launches": r["launches"], "launches_expected": want(r, inner)}
+    del r
+
+    # (2) one untimed full-body FOMAML step: the inner backward runs
+    # through the conformer
+    full = copy.deepcopy(cfg)
+    full.meta.adapt_filter = ""
+    r = conformer_step(torch, full, tok, mb, 0, 1)
+    res["fomaml_full_body"] = {
+        "steps": r["steps"], "ms": r["times"][0], "meta_loss": r["meta_loss"],
+        "launches": r["launches"], "launches_expected": want(r, inner)}
+    del r
+
+    # (3) one second-order MAML step at config4's shape (full body)
+    maml = copy.deepcopy(full)
+    maml.meta.algo, maml.meta.inner_steps = "maml", 2
+    r = conformer_step(torch, maml, tok, mb, 0, 1)
+    g = r["grads"]
+    leaf_max = {k: float(g[k].abs().max()) for k in (
+        "encoder.layers.0.self_attn.u_bias",
+        "encoder.layers.0.conv.depthwise.weight")}
+    res["maml_second_order"] = {
+        "inner_steps": 2, "steps": r["steps"], "ms": r["times"][0],
+        "peak_mem_gb": r["peak_mem_gb"], "meta_loss": r["meta_loss"],
+        "grads_finite": all(bool(torch.isfinite(v).all())
+                            for v in g.values()),
+        "conformer_leaf_grad_max": leaf_max,
+        "launches": r["launches"],
+        "launches_expected": want(r, 2, second_order=True)}
+    del r, g, mb
+    torch.cuda.empty_cache()
+
+    # (4) the CLI chain and cuda/cpu serving of its bundle
+    cli, served, evals = conformer_cli(torch)
+    res["cli"] = cli
+    log(res)
+
+    for name in ("fomaml_anil_decoder", "fomaml_full_body",
+                 "maml_second_order"):
+        part = res[name]
+        if not all(math.isfinite(v) for v in part["meta_loss"]):
+            raise SystemExit(f"conformer {name}: non-finite meta loss")
+        if part["launches"] != part["launches_expected"]:
+            raise SystemExit(f"conformer {name} launch counts "
+                             f"{part['launches']}, want "
+                             f"{part['launches_expected']}")
+    mm = res["maml_second_order"]
+    if not (mm["grads_finite"]
+            and all(v > 0 for v in mm["conformer_leaf_grad_max"].values())):
+        raise SystemExit(f"conformer MAML gradients: finite "
+                         f"{mm['grads_finite']}, u_bias / depthwise max "
+                         f"{mm['conformer_leaf_grad_max']}")
+    if not (cli["encoder"] == cli["recorded_encoder"] == "conformer"
+            and cli["conformer_kernel"] == 15 and len(evals) == 1
+            and all(math.isfinite(v) for v in cli["heldout_wer"])
+            and all(math.isfinite(v) for v in cli["meta_loss"])):
+        raise SystemExit("the conformer CLI's train / evaluation failed")
+    if served["conformer_cli_serve_bundle"] != \
+            served["conformer_cli_serve_bundle_config"]:
+        raise SystemExit("the conformer bundle served without --config "
+                         "disagrees with the bundle served with it")
+    from metaasr_tpu_torch.data.tokenizer import CharTokenizer
+
+    check_results(served["conformer_cli_serve_bundle"], 4,
+                  CharTokenizer.ascii_default())
+    par = cli["cuda_cpu_fp32"]
+    if not (par["same_text"] and par["max_score_diff"] <= PARITY_TOL):
+        raise SystemExit("cuda and cpu serving of the conformer bundle "
+                         "disagree")
+    if cli["launches"] != cli["launches_expected"]:
+        raise SystemExit(f"conformer CLI launch counts {cli['launches']}, "
+                         f"want {cli['launches_expected']}")
+    return res
+
+
 def last_line(torch, kind) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3128,11 +3451,13 @@ def main() -> int:
     prep = timed(phase_data_prep, torch, smi)
     timed(phase_acceptance, torch)
     lm = timed(phase_lm_fusion, torch, peaks, serving, smi)
+    conformer = timed(phase_conformer, torch, meta)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],
-        "note": "random init, 4 FOMAML / 2 MAML meta-steps on synthetic "
-                "accents: a trend, not a result"}})
+        "fomaml_config3_conformer": conformer["cli"]["heldout_wer"],
+        "note": "random init, 4 FOMAML / 2 MAML / 2 conformer FOMAML "
+                "meta-steps on synthetic accents: a trend, not a result"}})
     log({"phase_seconds": seconds})
     # the meta-test paths (phases 13-15), by kernel
     test_paths = {**meta_test["launches"],
@@ -3154,18 +3479,28 @@ def main() -> int:
     lstm_paths = lambda k: {**mono_paths(k), **new_paths(k),  # noqa: E731
                             **lm_paths(k)}
     prep_paths = {path: c["k1"] for path, c in prep["launches"].items()}
+    # phase 19: the conformer's meta-steps and CLI modes
+    conformer_paths = lambda k: {  # noqa: E731
+        path: c[k] for path, c in (
+            ("conformer_fomaml_anil_decoder",
+             conformer["fomaml_anil_decoder"]["launches"]),
+            ("conformer_fomaml_full_body",
+             conformer["fomaml_full_body"]["launches"]),
+            ("conformer_maml", conformer["maml_second_order"]["launches"]),
+            *conformer["cli"]["launches"].items()) if c[k]}
     k1_paths = {"serving": serving["k1_launches"],
                 **{f"meta_step_{c['tasks']}x{c['shots']}": c["k1_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k1_launches"], **mono_paths("k1"),
                 **maml_paths("k1"), **new_paths("k1"), **prep_paths,
-                **lm_paths("k1")}
+                **lm_paths("k1"), **conformer_paths("k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
                 **maml_paths("k2"), **new_paths("k2"),
                 "prep_feats_train": prep["launches"]["prep_feats_train"]["k2"],
-                **lm_paths("k2")}
+                **lm_paths("k2"), **conformer_paths("k2")}
+    k2b_paths = {**maml_paths("k2b"), **conformer_paths("k2b")}
     k2_task = k2["shapes"]["per_task"]
     k2b_shapes = k2b["shapes"]
     k2b_task = k2b_shapes["fused"]     # [16, 99, 65]: config4's per-task batch
@@ -3252,8 +3587,8 @@ def main() -> int:
         "name": "ctc_hvp", "route": "cuda",
         "source": "metaasr_tpu_torch/csrc/ctc.cu",
         "replaces": "metaasr_tpu/ops/ctc_pallas.py:191",
-        "launches": sum(maml_paths("k2b").values()),
-        "launches_by_path": maml_paths("k2b"),
+        "launches": sum(k2b_paths.values()),
+        "launches_by_path": k2b_paths,
         "max_abs_err": max(e["hv_max_abs_diff"]
                            for e in k2b_shapes.values()),
         "hv_l2rel": max(e["hv_l2rel"] for e in k2b_shapes.values()),

@@ -55,8 +55,8 @@ class ModelConfig:
     arch: str = "transformer"  # "transformer" | "vgg_blstm"
     # encoder for arch=transformer: "transformer" | "conformer" (macaron
     # FFN + rel-pos attention + depthwise-conv module; models/conformer.py).
-    # "conformer" is experimental in the reference (RESULTS.md) and not
-    # ported yet
+    # "conformer" is experimental in the reference (RESULTS.md): its
+    # meta-training needs meta.adapt_filter=decoder (ANIL-decoder)
     encoder: str = "transformer"
     conformer_kernel: int = 15  # depthwise-conv kernel width
     feat_dim: int = constants.FEAT_DIM

@@ -86,13 +86,15 @@ class Dense(nn.Linear):
     """Linear layer computing in ``compute_dtype`` (weights stay as stored)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 compute_dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+                 compute_dtype: torch.dtype = torch.float32,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Conv2d(nn.Conv2d):
@@ -370,16 +372,31 @@ class Decoder(nn.Module):
 
 
 class TransformerASR(nn.Module):
-    """Joint CTC-attention model: encoder + CTC head + attention decoder."""
+    """Joint CTC-attention model: encoder + CTC head + attention decoder.
+    ``encoder_type`` "conformer" swaps in ``models/conformer.py``'s encoder
+    (depthwise kernel ``conformer_kernel``); nothing else changes."""
 
     def __init__(self, vocab_size: int, d_model: int = 256, num_heads: int = 4,
                  d_ff: int = 2048, num_encoder_layers: int = 12,
                  num_decoder_layers: int = 6, feat_dim: int = 80,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 encoder_type: str = "transformer",
+                 conformer_kernel: int = 15):
         super().__init__()
         self.dtype = dtype
-        self.encoder = Encoder(d_model, num_heads, d_ff, num_encoder_layers,
-                               feat_dim, dtype, dropout=dropout)
+        if encoder_type == "conformer":
+            from metaasr_tpu_torch.models.conformer import ConformerEncoder
+
+            self.encoder = ConformerEncoder(
+                d_model, num_heads, d_ff, num_encoder_layers, feat_dim, dtype,
+                kernel_size=conformer_kernel, dropout=dropout)
+        elif encoder_type == "transformer":
+            self.encoder = Encoder(d_model, num_heads, d_ff,
+                                   num_encoder_layers, feat_dim, dtype,
+                                   dropout=dropout)
+        else:
+            raise ValueError(f"unknown encoder {encoder_type!r} (transformer "
+                             "or conformer)")
         self.ctc_head = Dense(d_model, vocab_size, torch.float32)
         self.decoder = Decoder(vocab_size, d_model, num_heads, d_ff,
                                num_decoder_layers, dtype, dropout=dropout)

@@ -65,16 +65,14 @@ def build_model(cfg: Config) -> TransformerASR | VGGBLSTMCTC:
                            dtype=_DTYPES[m.dtype], lstm_impl=m.lstm_impl)
     if m.arch != "transformer":
         raise ValueError(f"unknown arch {m.arch}")
-    if m.encoder != "transformer":
-        raise NotImplementedError(
-            f"encoder={m.encoder!r} (the conformer encoder) is not ported "
-            "yet (ROADMAP.md, port queue)")
     return TransformerASR(vocab_size=m.vocab_size, d_model=m.d_model,
                           num_heads=m.num_heads, d_ff=m.d_ff,
                           num_encoder_layers=m.num_encoder_layers,
                           num_decoder_layers=m.num_decoder_layers,
                           feat_dim=cfg.frontend.num_mel_bins,
-                          dtype=_DTYPES[m.dtype], dropout=m.dropout)
+                          dtype=_DTYPES[m.dtype], dropout=m.dropout,
+                          encoder_type=m.encoder,
+                          conformer_kernel=m.conformer_kernel)
 
 
 class ASRTask:

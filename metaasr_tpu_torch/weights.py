@@ -13,10 +13,13 @@ Flax leaf                     port key                     layout
 Dense ``kernel [in, out]``    ``weight [out, in]``         transpose
 qkv ``kernel [D, 3, H, Dh]``  ``weight [3D, D]``           flatten (3, H, Dh)
 q/k/v ``kernel [D, H, Dh]``   ``weight [D, D]``            flatten (H, Dh)
+``pos/kernel [D, H, Dh]``     ``pos.weight [D, D]``        flatten (H, Dh)
 attn out ``kernel [H, Dh, D]`` ``weight [D, D]``           flatten (H, Dh)
 Conv ``kernel`` HWIO          ``weight`` OIHW              permute
+depthwise ``kernel [K,1,C]``  ``weight [C, 1, K]``         reverse the axes
 ``VGGExtractor_0``, ``BLSTM_0``  ``vgg``, ``blstm``
 LSTM ``recurrent [H, 4H]``    ``recurrent [H, 4H]``        as it is
+``u_bias``/``v_bias [H, Dh]`` ``u_bias``/``v_bias``        as it is
 any ``bias``                  ``bias``                     flatten
 LayerNorm ``scale``           ``weight``
 Embed ``embedding``           ``weight``
@@ -43,7 +46,8 @@ import torch
 
 _RENAME = {"Dense_0": "fc1", "Dense_1": "fc2",
            "VGGExtractor_0": "vgg", "BLSTM_0": "blstm"}
-_BARE_LEAVES = ("recurrent",)   # parameters that are not a module's leaf
+# parameters that are not a module's leaf: they keep their names and layout
+_BARE_LEAVES = ("recurrent", "u_bias", "v_bias")
 _RENAME_BACK = {v: k for k, v in _RENAME.items()}
 
 
@@ -95,6 +99,8 @@ def _to_torch_layout(module: str, leaf: str, a: np.ndarray) -> np.ndarray:
         return a.reshape(-1)
     if module.startswith("conv"):
         return a.transpose(3, 2, 0, 1)
+    if module == "depthwise":                    # [K, 1, C] -> [C, 1, K]
+        return a.transpose(2, 1, 0)
     if module == "out" and a.ndim == 3:          # attention out [H, Dh, D]
         return a.reshape(-1, a.shape[-1]).T
     return a.reshape(a.shape[0], -1).T
@@ -199,8 +205,10 @@ def state_dict_to_flax(sd: dict[str, torch.Tensor], num_heads: int) -> dict:
         d_in = a.shape[1]
         if module == "qkv":
             k = a.T.reshape(d_in, 3, num_heads, -1)
-        elif module in ("q", "k", "v"):
+        elif module in ("q", "k", "v", "pos"):
             k = a.T.reshape(d_in, num_heads, -1)
+        elif module == "depthwise":
+            k = a.transpose(2, 1, 0)
         elif module == "out":
             k = a.T.reshape(num_heads, -1, a.shape[0])
         else:
@@ -211,9 +219,11 @@ def state_dict_to_flax(sd: dict[str, torch.Tensor], num_heads: int) -> dict:
 
 def random_state_dict(model: torch.nn.Module, seed: int) -> dict[str, torch.Tensor]:
     """Seeded random weights for ``model`` (numpy RNG, so the values do not
-    depend on the torch build): matrices ~ N(0, 1/fan_in), biases ~
-    N(0, 0.02^2), LayerNorm scales 1, embeddings ~ N(0, 1), an LSTM's
-    ``recurrent [H, 4H]`` with orthonormal rows (QR of a normal draw)."""
+    depend on the torch build): matrices ~ N(0, 1/fan_in), biases and the
+    conformer's per-head ``u_bias``/``v_bias`` ~ N(0, 0.02^2) (the
+    reference's initializer for those), LayerNorm scales 1, embeddings ~
+    N(0, 1), an LSTM's ``recurrent [H, 4H]`` with orthonormal rows (QR of
+    a normal draw)."""
     rng = np.random.default_rng(seed)
     sd = {}
     for key, t in model.state_dict().items():
@@ -226,7 +236,7 @@ def random_state_dict(model: torch.nn.Module, seed: int) -> dict[str, torch.Tens
         elif names[-1] == "recurrent":
             q, _ = np.linalg.qr(rng.standard_normal(shape[::-1]))
             a = q.T
-        elif names[-1] == "bias":
+        elif names[-1] in ("bias", "u_bias", "v_bias"):
             a = 0.02 * rng.standard_normal(shape)
         else:
             fan_in = int(np.prod(shape[1:]))

@@ -245,11 +245,19 @@ def test_task_builds_and_switches_the_model():
 
 
 def test_unported_archs_name_what_is_missing():
+    """The conformer encoder builds (with its kernel width); an unknown
+    encoder or arch raises, naming what is wrong."""
+    from metaasr_tpu_torch.models.conformer import ConformerEncoder
+
     cfg = Config()
-    cfg.model.encoder = "conformer"
-    with pytest.raises(NotImplementedError, match="conformer") as e:
+    cfg.model.encoder, cfg.model.conformer_kernel = "conformer", 7
+    cfg.model.num_encoder_layers = cfg.model.num_decoder_layers = 1
+    model = build_model(cfg)
+    assert isinstance(model.encoder, ConformerEncoder)
+    assert model.encoder.layers[0].conv.depthwise.weight.shape == (256, 1, 7)
+    cfg.model.encoder = "lstm"
+    with pytest.raises(ValueError, match="unknown encoder 'lstm'"):
         build_model(cfg)
-    assert "vgg" not in str(e.value).lower()
     cfg.model.arch = "rnnt"
-    with pytest.raises(ValueError, match="unknown arch"):
+    with pytest.raises(ValueError, match="unknown arch rnnt"):
         build_model(cfg)
