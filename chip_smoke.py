@@ -211,6 +211,18 @@ Phases, one JSON line each; any failure exits non-zero:
              cuda and on the cpu under strict fp32, two short requests
              (phase 4's bars); exact K1/K2/K2b launch counts everywhere.
 
+20. bench   — the port's headline bench (``scripts/bench.py``): (a)
+             ``bench.measure`` in this process at 4 x (16 + 16), 3 steps a
+             pass: exactly 2*M K1 and M*(inner_steps+1) K2 launches for
+             each of its ``steps_run`` (warm-up and FLOP-count steps
+             included), 0 K2b/K3/K3b, the loss finite, MFU in (0, 1], the
+             passes' ms; (b) ``python -m metaasr_tpu_torch.scripts.bench
+             --steps 3`` as a subprocess: rc 0, one record in the frozen
+             unit with finite positive ``value``, ``mfu``, ``vs_baseline``
+             and ``vs_samechip_sequential``, the reference's ``workload``,
+             ``device.name`` equal to ``nvidia-smi``'s; (c) the sweep,
+             ``--points 4x4 --steps 2``: rc 0, one row and the summary.
+
 Then a line of the held-out WERs of phases 13, 14 and 19 (random init: a
 trend), a ``{"kernels": [...]}`` line (time, bound, launches on the main
 paths per kernel; K3/K3b also at the LM's shape) and the last line
@@ -3188,6 +3200,93 @@ def phase_conformer(torch, meta):
     return res
 
 
+# ------------------------------------------------ the headline bench ----
+
+BENCH_STEPS = 3         # steps a pass in phase 20 (the record's: 10 / 20)
+SWEEP_STEPS = 2
+BENCH_WORKLOAD = {"tasks": 4, "k_support": 16, "k_query": 16,
+                  "inner_steps": 3, "audio_sec": 4.0}   # bench.py:309-311
+
+
+def run_module(argv, timeout) -> tuple[subprocess.CompletedProcess, float]:
+    """``python -m argv...`` from the checkout's root; -> (process,
+    seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *argv],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=timeout)
+    return r, time.perf_counter() - t0
+
+
+def phase_bench(torch, smi):
+    """The headline bench in this process (exact launch counts), as a user
+    runs it, and the sweep at one point."""
+    from metaasr_tpu_torch.scripts import bench
+
+    m_tasks, k_shot = bench.H_TASKS, bench.H_K
+    out = {"phase": "bench"}
+    # (a) in process, every count zeroed first
+    zero_counts()
+    t0 = time.perf_counter()
+    r = bench.measure(steps=BENCH_STEPS, m_tasks=m_tasks, k_shot=k_shot)
+    n = r["steps_run"]
+    out["measure"] = {
+        "tasks": m_tasks, "shots": k_shot, **r,
+        "unique_utts_per_sec": r["presentations_per_sec"] * 2 * k_shot
+        / (k_shot * bench.INNER_STEPS + k_shot),
+        "seconds": round(time.perf_counter() - t0, 1),
+        "launches": all_counts(),
+        "launches_expected": {"k1": n * 2 * m_tasks,
+                              "k2": n * m_tasks * (bench.INNER_STEPS + 1),
+                              "k3": 0, "k3b": 0, "k2b": 0}}
+    torch.cuda.empty_cache()
+    # (b) the record, as a user runs it
+    proc, sec = run_module(["metaasr_tpu_torch.scripts.bench", "--steps",
+                            str(BENCH_STEPS)], timeout=600)
+    rec = None
+    if proc.returncode == 0:
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["record"] = {"rc": proc.returncode, "seconds": round(sec, 1),
+                     "line": rec}
+    # (c) the sweep at one point
+    proc_s, sec_s = run_module(["metaasr_tpu_torch.scripts.sweep_throughput",
+                                "--points", "4x4", "--steps",
+                                str(SWEEP_STEPS)], timeout=300)
+    lines = [json.loads(ln) for ln in proc_s.stdout.strip().splitlines()
+             if ln.startswith("{")]
+    rows = [x for x in lines if "summary" not in x]
+    out["sweep"] = {"rc": proc_s.returncode, "seconds": round(sec_s, 1),
+                    "lines": lines}
+    log(out)
+
+    m = out["measure"]
+    if m["launches"] != m["launches_expected"]:
+        raise SystemExit(f"bench launch counts {m['launches']}, want "
+                         f"{m['launches_expected']}")
+    if not (math.isfinite(m["meta_loss"]) and 0 < m["mfu"] <= 1):
+        raise SystemExit(f"bench: meta loss {m['meta_loss']}, mfu "
+                         f"{m['mfu']}")
+    if rec is None:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"the bench exited {proc.returncode}")
+
+    def positive(x):
+        return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+    if not (rec["unit"] == "unique_utts/s/chip"
+            and all(positive(rec[k]) for k in (
+                "value", "mfu", "vs_baseline", "vs_samechip_sequential"))
+            and rec["mfu"] <= 1 and rec["workload"] == BENCH_WORKLOAD
+            and rec["device"]["name"] == smi.rsplit(",", 1)[0].strip()):
+        raise SystemExit(f"the bench's record is not as the contract says: "
+                         f"{rec}")
+    if not (proc_s.returncode == 0 and len(rows) == 1
+            and "error" not in rows[0] and lines[-1].get("summary")):
+        print(proc_s.stdout[-3000:], proc_s.stderr[-3000:], file=sys.stderr)
+        raise SystemExit("the sweep failed")
+    return out
+
+
 def last_line(torch, kind) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3452,6 +3551,7 @@ def main() -> int:
     timed(phase_acceptance, torch)
     lm = timed(phase_lm_fusion, torch, peaks, serving, smi)
     conformer = timed(phase_conformer, torch, meta)
+    bench = timed(phase_bench, torch, smi)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],
@@ -3493,13 +3593,15 @@ def main() -> int:
                    for c in meta["cells"]},
                 "train_entry": entry["k1_launches"], **mono_paths("k1"),
                 **maml_paths("k1"), **new_paths("k1"), **prep_paths,
-                **lm_paths("k1"), **conformer_paths("k1")}
+                **lm_paths("k1"), **conformer_paths("k1"),
+                "bench": bench["measure"]["launches"]["k1"]}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
                 **maml_paths("k2"), **new_paths("k2"),
                 "prep_feats_train": prep["launches"]["prep_feats_train"]["k2"],
-                **lm_paths("k2"), **conformer_paths("k2")}
+                **lm_paths("k2"), **conformer_paths("k2"),
+                "bench": bench["measure"]["launches"]["k2"]}
     k2b_paths = {**maml_paths("k2b"), **conformer_paths("k2b")}
     k2_task = k2["shapes"]["per_task"]
     k2b_shapes = k2b["shapes"]

@@ -175,7 +175,9 @@ def test_port_imports_neither_jax_nor_reference_package():
         "          'train.meta_train', 'data.sampler', 'ops.lstm_kernel',\n"
         "          'models.vgg_blstm', 'train.mono', 'train.metrics',\n"
         "          'scripts.prepare_data', 'scripts.acceptance', 'data.bpe',\n"
-        "          'models.lm', 'scripts.train_lm'):\n"
+        "          'models.lm', 'scripts.train_lm', 'scripts.bench',\n"
+        "          'scripts.bench_baseline_torch', 'scripts.bench_baseline_seq',\n"
+        "          'scripts.sweep_throughput'):\n"
         "    assert 'metaasr_tpu_torch.' + m in mods, mods\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
