@@ -223,6 +223,22 @@ Phases, one JSON line each; any failure exits non-zero:
              ``device.name`` equal to ``nvidia-smi``'s; (c) the sweep,
              ``--points 4x4 --steps 2``: rc 0, one row and the summary.
 
+21. serving_benches — the serving benches at full width (d 256, 12 + 6
+             layers, bf16, 400 feature frames, beam 10, 48 forced steps):
+             ``decode_bench.measure`` at B 16, B 16 with the LM (weight
+             0.3), B 16 at vocab 512 with 40 CTC candidates, and
+             ``measure_pipelined(16, nbatches=2)``; ``serve_bench.measure``
+             cut to 2 batches of 16; ``python -m
+             metaasr_tpu_torch.scripts.batcher_bench`` as a subprocess at
+             0.25x and 0.5x serve_bench's pipelined rate, 5 s legs. Exactly
+             0 K1/K2/K2b/K3/K3b launches in this process (features in, the
+             LM's search step plain PyTorch), every hypothesis 48 tokens
+             long, the packed read-back equal to the dict read-back (tokens
+             and lengths exact, scores bit-equal), sync and pipelined
+             serving texts equal batch for batch, every batcher request
+             completed and rc 0; every row beside ``nvidia-smi``'s line and
+             the phase's seconds (budget 150 s, printed, not gated).
+
 Then a line of the held-out WERs of phases 13, 14 and 19 (random init: a
 trend), a ``{"kernels": [...]}`` line (time, bound, launches on the main
 paths per kernel; K3/K3b also at the LM's shape) and the last line
@@ -3287,6 +3303,68 @@ def phase_bench(torch, smi):
     return out
 
 
+# ------------------------------------------------ the serving benches ----
+
+SERVE_BENCH_BATCHES = 2     # serve_bench's batches in phase 21 (default 8)
+PIPELINED_BATCHES = 2       # measure_pipelined's batches there (default 8)
+BATCHER_LOADS = (0.25, 0.5)  # offered loads, x serve_bench's pipelined rate
+BATCHER_SECS = 5
+SERVING_BENCHES_BUDGET_S = 150
+
+
+def phase_serving_benches(torch, smi):
+    """decode_bench, serve_bench and batcher_bench at full width, cut by
+    their keyword arguments and flags; exact (zero) launch counts."""
+    from metaasr_tpu_torch.scripts import decode_bench, serve_bench
+
+    t0 = time.perf_counter()
+    zero_counts()
+    decode = [decode_bench.measure(16),
+              decode_bench.measure(16, lm_weight=0.3),
+              decode_bench.measure(16, vocab=512, ctc_candidates=40)]
+    pipelined = decode_bench.measure_pipelined(16,
+                                               nbatches=PIPELINED_BATCHES)
+    torch.cuda.empty_cache()
+    serve = serve_bench.measure(batches=SERVE_BENCH_BATCHES)
+    launches = all_counts()
+    torch.cuda.empty_cache()
+    rates = [round(f * serve["pipelined_utts_per_sec"], 2)
+             for f in BATCHER_LOADS]
+    proc, sec = run_module(["metaasr_tpu_torch.scripts.batcher_bench",
+                            "--loads", ",".join(str(r) for r in rates),
+                            "--secs", str(BATCHER_SECS)], timeout=600)
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    legs = [x for x in lines if "offered_utts_per_sec" in x]
+    seconds = time.perf_counter() - t0
+    out = {"phase": "serving_benches", "card": smi, "decode": decode,
+           "pipelined": pipelined, "serve": serve,
+           "batcher": {"rc": proc.returncode, "seconds": round(sec, 1),
+                       "loads": rates, "secs": BATCHER_SECS,
+                       "lines": lines},
+           "launches": launches, "seconds": round(seconds, 1),
+           "budget_s": SERVING_BENCHES_BUDGET_S}
+    log(out)
+    if any(launches.values()):
+        raise SystemExit(f"the serving benches launched kernels: {launches}")
+    for r in decode:
+        if r["hyp_lengths"] != [decode_bench.STEPS] * 2:
+            raise SystemExit(f"a decode row stopped short of the forced "
+                             f"length: {r}")
+    if not pipelined["packed_equals_dict"]:
+        raise SystemExit("the packed read-back differs from the dict one")
+    if not serve["sync_pipelined_texts_equal"]:
+        raise SystemExit("sync and pipelined serving gave other texts")
+    if not (proc.returncode == 0 and len(legs) == len(rates)
+            and all(x["completed"] == x["sent"] for x in legs)
+            and any("deadline_adherence" in x for x in lines)
+            and any("saturation_utts_per_sec" in x for x in lines)):
+        print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+        raise SystemExit("the batcher bench failed or left requests "
+                         "unanswered")
+    return out
+
+
 def last_line(torch, kind) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3552,6 +3630,7 @@ def main() -> int:
     lm = timed(phase_lm_fusion, torch, peaks, serving, smi)
     conformer = timed(phase_conformer, torch, meta)
     bench = timed(phase_bench, torch, smi)
+    timed(phase_serving_benches, torch, smi)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],

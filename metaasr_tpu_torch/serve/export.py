@@ -19,7 +19,9 @@ config for it. The JAX package's bundles keep those in their programs, so
 they are served with the run's ``Config`` (``--config``).
 
 :func:`decode_features` and :func:`read_decoded` are the decode and the
-read-back that serving and the meta trainer's ``decode`` share.
+read-back that serving and the meta trainer's ``decode`` share;
+:func:`pack_decode_outputs` / :func:`unpack_decode_outputs` fold a decode's
+outputs into one int32 tensor so that its read-back is one copy to the host.
 """
 
 from __future__ import annotations
@@ -116,13 +118,16 @@ _GLOBAL_CMVN_FILE = "cmvn_stats.json"
 def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
                  buckets: Sequence[tuple[int, int]],
                  weights_dtype: str = "float32",
-                 mode: str | None = None, lm_params=None) -> dict:
+                 mode: str | None = None, lm_params=None,
+                 from_feats: bool = False) -> dict:
     """Write params.npz, tokenizer.json and meta.json for a Flax-layout
     params tree (no programs: ``files`` is empty). ``mode`` is the decode
     algorithm, "beam" or "greedy"; None picks beam for the transformer and
     greedy for the CTC-only VGG-BLSTM. ``lm_params``, a Flax-layout LM
     tree, is fused (stored under ``__lm__``) when ``train.lm_weight`` is
-    not 0. Returns the manifest."""
+    not 0. ``from_feats``: the bundle takes [T, num_mel_bins] features in
+    place of waveforms, and its buckets are (batch, frames). Returns the
+    manifest."""
     if mode is None:
         mode = "beam" if cfg.model.arch == "transformer" else "greedy"
     if mode == "greedy" and lm_params is not None:
@@ -158,7 +163,7 @@ def write_bundle(out_dir: str, cfg, params, tokenizer: _BaseTokenizer,
         "version": BUNDLE_VERSION,
         "buckets": [list(b) for b in buckets],
         "platforms": [],
-        "from_feats": False,
+        "from_feats": from_feats,
         "mode": mode,
         "packed": True,
         "weights_dtype": weights_dtype,
@@ -396,6 +401,28 @@ def decode_features(task: ASRTask, model, feats, feat_lens, mode: str,
         return beam_search_transformer(model, feats, feat_lens,
                                        task.sos_eos_id, beam_cfg,
                                        lm_model=lm)
+
+
+def pack_decode_outputs(out: dict) -> torch.Tensor:
+    """{tokens [B, K, L], lengths [B, K], scores [B, K] fp32} on the device
+    -> one [B, K, L + 2] int32 tensor on the same device: the tokens, the
+    lengths, and the scores' fp32 bits viewed as int32."""
+    tokens = out["tokens"].to(torch.int32)
+    lengths = out["lengths"].to(torch.int32)[:, :, None]
+    scores = out["scores"].float().view(torch.int32)[:, :, None]
+    return torch.cat([tokens, lengths, scores], dim=2)
+
+
+def unpack_decode_outputs(packed) -> dict:
+    """Inverse of :func:`pack_decode_outputs` on the host: a tensor on any
+    device (one copy to the host) or a numpy array -> numpy {tokens,
+    lengths, scores (float32)}."""
+    if isinstance(packed, torch.Tensor):
+        packed = packed.cpu().numpy()
+    packed = np.asarray(packed)
+    return {"tokens": packed[:, :, :-2],
+            "lengths": packed[:, :, -2],
+            "scores": packed[:, :, -1].view(np.float32)}
 
 
 def read_decoded(out: dict, n: int, tokenizer, nbest: int = 1) -> list[dict]:

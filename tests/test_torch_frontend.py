@@ -161,14 +161,16 @@ def test_config_copy_loads_like_reference():
 
 def test_port_imports_neither_jax_nor_reference_package():
     """Every module of the port, imported in a fresh interpreter, pulls in
-    neither ``jax`` nor ``metaasr_tpu``."""
+    neither ``jax`` nor ``metaasr_tpu`` (nor ``triton``: kernels are built
+    where they launch)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import metaasr_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'metaasr_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
-        " or k == 'metaasr_tpu' or k.startswith('metaasr_tpu.'))\n"
+        " or k == 'metaasr_tpu' or k.startswith('metaasr_tpu.')"
+        " or k == 'triton' or k.startswith('triton.'))\n"
         "print(len(mods), bad)\n"
         "assert not bad, bad\n"
         "for m in ('serve.batcher', 'ops.ctc_kernel', 'meta.maml',\n"
@@ -177,7 +179,8 @@ def test_port_imports_neither_jax_nor_reference_package():
         "          'scripts.prepare_data', 'scripts.acceptance', 'data.bpe',\n"
         "          'models.lm', 'scripts.train_lm', 'scripts.bench',\n"
         "          'scripts.bench_baseline_torch', 'scripts.bench_baseline_seq',\n"
-        "          'scripts.sweep_throughput'):\n"
+        "          'scripts.sweep_throughput', 'serve', 'scripts.decode_bench',\n"
+        "          'scripts.serve_bench', 'scripts.batcher_bench'):\n"
         "    assert 'metaasr_tpu_torch.' + m in mods, mods\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
