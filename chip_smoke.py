@@ -212,16 +212,16 @@ Phases, one JSON line each; any failure exits non-zero:
              (phase 4's bars); exact K1/K2/K2b launch counts everywhere.
 
 20. bench   — the port's headline bench (``scripts/bench.py``): (a)
-             ``bench.measure`` in this process at 4 x (16 + 16), 3 steps a
+             ``bench.measure`` in this process at 4 x (16 + 16), 1 step a
              pass: exactly 2*M K1 and M*(inner_steps+1) K2 launches for
              each of its ``steps_run`` (warm-up and FLOP-count steps
              included), 0 K2b/K3/K3b, the loss finite, MFU in (0, 1], the
              passes' ms; (b) ``python -m metaasr_tpu_torch.scripts.bench
-             --steps 3`` as a subprocess: rc 0, one record in the frozen
+             --steps 1`` as a subprocess: rc 0, one record in the frozen
              unit with finite positive ``value``, ``mfu``, ``vs_baseline``
              and ``vs_samechip_sequential``, the reference's ``workload``,
              ``device.name`` equal to ``nvidia-smi``'s; (c) the sweep,
-             ``--points 4x4 --steps 2``: rc 0, one row and the summary.
+             ``--points 4x4 --steps 1``: rc 0, one row and the summary.
 
 21. serving_benches — the serving benches at full width (d 256, 12 + 6
              layers, bf16, 400 feature frames, beam 10, 48 forced steps):
@@ -230,7 +230,7 @@ Phases, one JSON line each; any failure exits non-zero:
              ``measure_pipelined(16, nbatches=2)``; ``serve_bench.measure``
              cut to 2 batches of 16; ``python -m
              metaasr_tpu_torch.scripts.batcher_bench`` as a subprocess at
-             0.25x and 0.5x serve_bench's pipelined rate, 5 s legs. Exactly
+             0.5x serve_bench's pipelined rate, a 5 s leg. Exactly
              0 K1/K2/K2b/K3/K3b launches in this process (features in, the
              LM's search step plain PyTorch), every hypothesis 48 tokens
              long, the packed read-back equal to the dict read-back (tokens
@@ -238,6 +238,31 @@ Phases, one JSON line each; any failure exits non-zero:
              serving texts equal batch for batch, every batcher request
              completed and rc 0; every row beside ``nvidia-smi``'s line and
              the phase's seconds (budget 150 s, printed, not gated).
+
+22. quality_scripts — the quality scripts' path, in this process: (a)
+             ``configs/config2_multitask_transformer.yaml`` at full width
+             (d 256, 12 + 6 layers, bf16, batch 32, Noam warm-up 4,000)
+             through ``cli.main --mode train`` for 8 steps on an 8-accent
+             corpus of 24 utterances each: every logged loss finite,
+             exactly one K1 and one K2 launch a step, 0 K2b/K3/K3b; step
+             ms (the median of steps 3-8 from the logged rates), kernels
+             and busy share of one more profiled step, peak memory; before
+             it, one step at the tests' width on cuda against the cpu
+             under strict fp32 (loss rtol 1e-4, grad_norm rtol 1e-3). (b)
+             ``demo_meta_adaptation.main --steps 20 --utts-per-accent 24``
+             at its own width (d 128, 4 + 2 layers, bf16) into a temporary
+             corpus, workdir and output: both markdown rows, every WER
+             finite, and the exact K1/K2 launches of each call of
+             ``meta_train``, ``train``, ``meta_adapt`` and ``decode``. (c)
+             ``kshot_curve.main --ks 0,1,5 --draws 2 --max-utts 16`` over a
+             ``fomaml`` and a ``multi`` workdir trained 4 steps each under
+             the flagship recipe at config3 width: both restore step 4,
+             the reference's JSON layout, every WER finite, exact launches
+             (K2 = adapt_steps x draws x nonzero ks x runs); then
+             ``--tiny --ks 0`` over a workdir written on the cpu, run on
+             the card, and one written on the card, run on the cpu: both
+             restore. The phase's seconds beside its budget (150 s,
+             printed, not gated).
 
 Then a line of the held-out WERs of phases 13, 14 and 19 (random init: a
 trend), a ``{"kernels": [...]}`` line (time, bound, launches on the main
@@ -3218,8 +3243,8 @@ def phase_conformer(torch, meta):
 
 # ------------------------------------------------ the headline bench ----
 
-BENCH_STEPS = 3         # steps a pass in phase 20 (the record's: 10 / 20)
-SWEEP_STEPS = 2
+BENCH_STEPS = 1         # steps a pass in phase 20 (the record's: 10 / 20)
+SWEEP_STEPS = 1
 BENCH_WORKLOAD = {"tasks": 4, "k_support": 16, "k_query": 16,
                   "inner_steps": 3, "audio_sec": 4.0}   # bench.py:309-311
 
@@ -3307,7 +3332,7 @@ def phase_bench(torch, smi):
 
 SERVE_BENCH_BATCHES = 2     # serve_bench's batches in phase 21 (default 8)
 PIPELINED_BATCHES = 2       # measure_pipelined's batches there (default 8)
-BATCHER_LOADS = (0.25, 0.5)  # offered loads, x serve_bench's pipelined rate
+BATCHER_LOADS = (0.5,)  # offered loads, x serve_bench's pipelined rate
 BATCHER_SECS = 5
 SERVING_BENCHES_BUDGET_S = 150
 
@@ -3362,6 +3387,401 @@ def phase_serving_benches(torch, smi):
         print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
         raise SystemExit("the batcher bench failed or left requests "
                          "unanswered")
+    return out
+
+
+# ------------------------------------------------- the quality scripts ----
+
+CONFIG2_YAML = "configs/config2_multitask_transformer.yaml"
+CONFIG2_STEPS = 8           # train.max_steps of config2's CLI run
+DEMO_STEPS = 20             # demo_meta_adaptation --steps (default 800)
+DEMO_UTTS = 24              # its --utts-per-accent (default 192)
+KSHOT_TRAIN_STEPS = 4       # steps of each workdir kshot_curve restores
+KSHOT_KS = (0, 1, 5)
+KSHOT_DRAWS = 2
+KSHOT_MAX_UTTS = 16
+QUALITY_BUDGET_S = 150
+SMALL_WIDTH = {"model.d_model": 32, "model.num_heads": 2, "model.d_ff": 64,
+               "model.num_encoder_layers": 2, "model.num_decoder_layers": 2}
+
+
+@contextlib.contextmanager
+def launches_per_call(cls, name, record: dict):
+    """Wrap ``cls.name`` so that each call appends its launch counts (the
+    counters' growth over the call) to ``record["Cls.name"]``."""
+    own = cls.__dict__.get(name)
+    fn = getattr(cls, name)
+
+    def wrapped(self, *args, **kwargs):
+        before = all_counts()
+        out = fn(self, *args, **kwargs)
+        after = all_counts()
+        record.setdefault(f"{cls.__name__}.{name}", []).append(
+            {k: after[k] - before[k] for k in after})
+        return out
+
+    setattr(cls, name, wrapped)
+    try:
+        yield
+    finally:
+        if own is None:
+            delattr(cls, name)
+        else:
+            setattr(cls, name, own)
+
+
+def decode_batches(n: int, bsz: int, max_utts: int) -> int:
+    """Batches ``MetaASRTrainer.decode`` runs over n utterances: one K1
+    launch each."""
+    return -(-min(n, max_utts) // bsz)
+
+
+def kernel_counts(k1=0, k2=0) -> dict:
+    """all_counts()'s layout: K1 and K2 as given, no K2b/K3/K3b."""
+    return {"k1": k1, "k2": k2, "k3": 0, "k3b": 0, "k2b": 0}
+
+
+def config2_parity(torch, data) -> dict:
+    """One config2 step at the port tests' width (fp32, dropout 0,
+    SpecAugment off, dither 0) on cuda against the same step on the cpu
+    from the same weights and batch: loss within rtol 1e-4, grad_norm
+    within rtol 1e-3."""
+    from metaasr_tpu_torch.cli import make_trainer
+    from metaasr_tpu_torch.config import load_config
+    from metaasr_tpu_torch.train.meta_train import to_device
+
+    over = {**SMALL_WIDTH, "model.dtype": "float32", "model.dropout": 0.0,
+            "specaug.enabled": False, "frontend.dither": 0.0,
+            "data.data_dir": data}
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for dev in ("cpu", DEVICE):
+            tr, _ = make_trainer(load_config(CONFIG2_YAML, dict(over)),
+                                 os.path.join(d, dev), dev)
+            if dev == "cpu":
+                state = tr.init_state()
+                params = state["params"]
+                batch = next(tr.batcher.iter_from(0))
+            else:
+                p = {k: v.to(dev) for k, v in params.items()}
+                state = dict(state, params=p, opt_state=tr.optimizer.init(p))
+            _, m = tr.step(state, to_device(batch, dev))
+            out[dev] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    out["loss_rel_diff"] = abs(out[DEVICE]["loss"] / out["cpu"]["loss"] - 1)
+    out["grad_norm_rel_diff"] = abs(
+        out[DEVICE]["grad_norm"] / out["cpu"]["grad_norm"] - 1)
+    out["ok"] = out["loss_rel_diff"] <= 1e-4 \
+        and out["grad_norm_rel_diff"] <= 1e-3
+    return out
+
+
+def quality_config2(torch, data) -> dict:
+    """configs/config2_multitask_transformer.yaml at full width through
+    ``cli.main --mode train`` for CONFIG2_STEPS steps; one more step of the
+    restored state under the profiler."""
+    from metaasr_tpu_torch.cli import make_trainer
+    from metaasr_tpu_torch.config import load_config
+    from metaasr_tpu_torch.train.meta_train import to_device
+
+    with strict_fp32():
+        parity = config2_parity(torch, data)
+    with tempfile.TemporaryDirectory() as d:
+        wd = os.path.join(d, "wd")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        stdout, secs = run_cli(["--config", CONFIG2_YAML, "--mode", "train",
+                                "--data-dir", data, "--workdir", wd,
+                                "-o", f"train.max_steps={CONFIG2_STEPS}",
+                                "-o", "train.log_every=1"])
+        counts = all_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(wd, "logs", "scalars.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        cfg = load_config(CONFIG2_YAML, {"data.data_dir": data})
+        trainer, _ = make_trainer(cfg, wd, DEVICE)
+        state, at = trainer.ckpt.restore(map_location=DEVICE)
+        batch = to_device(next(trainer.batcher.iter_from(at)), DEVICE)
+        st = {"state": state}
+
+        def one_step():
+            st["state"], _ = trainer.step(st["state"], batch)
+
+        one_step()
+        prof = device_busy(torch, one_step)
+    bsz = cfg.data.batch_size
+    step_ms = [1e3 * bsz / r["utts_per_sec"] for r in recs]
+    ms = statistics.median(step_ms[2:])
+    m = cfg.model
+    return {"config": CONFIG2_YAML, "trainer": type(trainer).__name__,
+            "model": {"d_model": m.d_model, "layers": [
+                m.num_encoder_layers, m.num_decoder_layers],
+                "dtype": m.dtype, "vocab": m.vocab_size},
+            "batch": bsz, "noam_warmup": cfg.optimizer.warmup_steps,
+            "steps": len(recs), "restored_step": at, "cli_seconds": secs,
+            "cli_stdout": stdout.strip().splitlines()[-1:],
+            "loss": [r["loss"] for r in recs],
+            "ms_per_step_logged": step_ms,
+            "ms_per_step_median_3_8": ms, "utts_per_s": bsz / (ms / 1e3),
+            "peak_mem_gb": peak / 1e9,
+            "profiled_step": {"wall_ms": prof[0], "device_busy_ms": prof[1],
+                              "cuda_kernels": prof[2],
+                              "top_kernels_ms": prof[3]},
+            "device_busy_share": None if prof[1] is None else prof[1] / ms,
+            "launches": counts,
+            "launches_expected": kernel_counts(CONFIG2_STEPS, CONFIG2_STEPS),
+            "parity_small_cuda_vs_cpu": parity}
+
+
+def quality_demo(data, work) -> dict:
+    """demo_meta_adaptation.main at its own width, cut by --steps and
+    --utts-per-accent; launch counts per trainer call."""
+    import io
+
+    from metaasr_tpu_torch.data.dataset import Manifest
+    from metaasr_tpu_torch.scripts import demo_meta_adaptation as demo
+    from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
+    from metaasr_tpu_torch.train.mono import MultitaskASRTrainer
+
+    out_md = os.path.join(work, "RESULTS_demo.md")
+    calls = {}
+    t0 = time.perf_counter()
+    zero_counts()
+    with contextlib.ExitStack() as stack:
+        for cls, name in ((MetaASRTrainer, "meta_train"),
+                          (MultitaskASRTrainer, "train"),
+                          (MetaASRTrainer, "meta_adapt"),
+                          (MetaASRTrainer, "decode")):
+            stack.enter_context(launches_per_call(cls, name, calls))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = demo.main(["--steps", str(DEMO_STEPS), "--utts-per-accent",
+                             str(DEMO_UTTS), "--data-dir", data, "--workdir",
+                             os.path.join(work, "demo_runs"), "--out",
+                             out_md])
+    total = all_counts()
+    seconds = time.perf_counter() - t0
+    with open(out_md) as f:
+        md = f.read()
+    # the counts the demo's code gives (scripts/demo_meta_adaptation.py)
+    cfg = demo.make_cfg("fomaml", DEMO_STEPS)
+    m, bsz = cfg.meta, cfg.data.batch_size
+    n = len(Manifest.load(os.path.join(data, f"{demo.HELDOUT}.jsonl")).utts)
+    zs = decode_batches(n - max(m.k_support, 8), bsz, 64)
+    test = decode_batches(n - m.k_support, bsz, 64)
+    want = {"MetaASRTrainer.meta_train": [kernel_counts(
+                DEMO_STEPS * 2 * m.tasks_per_batch,
+                DEMO_STEPS * m.tasks_per_batch * (m.inner_steps + 1))],
+            "MultitaskASRTrainer.train": [
+                kernel_counts(DEMO_STEPS, DEMO_STEPS)],
+            "MetaASRTrainer.meta_adapt": [kernel_counts(1, 5)] * 4,
+            "MetaASRTrainer.decode": [kernel_counts(b) for b in (
+                zs, test, test, test) * 2]}
+    want_total = {k: sum(c[k] for cs in want.values() for c in cs)
+                  for k in total}
+    rows = [line for line in md.splitlines()
+            if line.startswith(("| fomaml |", "| multi |"))]
+    wers = [v["wer"] for e in res.values() for v in e.values()
+            if isinstance(v, dict)]
+    return {"steps": DEMO_STEPS, "utts_per_accent": DEMO_UTTS,
+            "heldout_utts": n, "seconds": seconds,
+            "train_seconds": {a: e["train_seconds"] for a, e in res.items()},
+            "rows": rows, "results": res, "launches": total,
+            "launches_expected": want_total, "launches_per_call": calls,
+            "launches_per_call_expected": want,
+            "ok": (len(rows) == 2 and calls == want and total == want_total
+                   and all(math.isfinite(w) for w in wers))}
+
+
+def flagship_workdir(data, wd, algo, steps, device, tiny=False):
+    """A workdir trained ``steps`` steps on ``device`` under the flagship
+    recipe (at kshot_curve's ``--tiny`` width with ``tiny``), by the
+    trainer kshot_curve restores it with -> the run's config."""
+    from metaasr_tpu_torch.data.dataset import load_accent_datasets
+    from metaasr_tpu_torch.data.tokenizer import CharTokenizer
+    from metaasr_tpu_torch.scripts import flagship_results as flagship
+    from metaasr_tpu_torch.scripts import kshot_curve as kshot
+    from metaasr_tpu_torch.task import ASRTask
+    from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
+    from metaasr_tpu_torch.train.mono import MultitaskASRTrainer
+
+    tok = CharTokenizer.ascii_default()
+    cfg = flagship.make_cfg(algo, steps, data)
+    cfg.model.vocab_size = tok.vocab_size
+    if tiny:
+        kshot.apply_tiny(cfg)
+    dsets = load_accent_datasets(data, tok)
+    heldout = {flagship.HELDOUT: dsets.pop(flagship.HELDOUT)}
+    task = ASRTask(cfg, tok.sos_eos_id, device=device)
+    if algo == "multi":
+        MultitaskASRTrainer(cfg, task, dsets, None, tok, wd,
+                            device=device).train()
+    else:
+        MetaASRTrainer(cfg, task, dsets, heldout, tok, wd,
+                       device=device).meta_train()
+    return cfg
+
+
+def quality_kshot(torch, data, work) -> dict:
+    """Two workdirs (fomaml, multi) trained KSHOT_TRAIN_STEPS steps under
+    the flagship recipe at config3 width, then kshot_curve.main over
+    both."""
+    import io
+
+    from metaasr_tpu_torch.scripts import kshot_curve as kshot
+    from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
+
+    runs, train, t0 = {}, {}, time.perf_counter()
+    for algo in ("fomaml", "multi"):
+        runs[algo] = os.path.join(work, f"kshot_{algo}")
+        zero_counts()
+        m = flagship_workdir(data, runs[algo], algo, KSHOT_TRAIN_STEPS,
+                             DEVICE).meta
+        want = (kernel_counts(KSHOT_TRAIN_STEPS, KSHOT_TRAIN_STEPS)
+                if algo == "multi" else
+                kernel_counts(KSHOT_TRAIN_STEPS * 2 * m.tasks_per_batch,
+                              KSHOT_TRAIN_STEPS * m.tasks_per_batch
+                              * (m.inner_steps + 1)))
+        train[algo] = {"launches": all_counts(), "launches_expected": want}
+    train_s = time.perf_counter() - t0
+    out_json = os.path.join(work, "kshot_curve.json")
+    calls, buf = {}, io.StringIO()
+    t0 = time.perf_counter()
+    zero_counts()
+    with contextlib.ExitStack() as stack:
+        for name in ("meta_adapt", "decode"):
+            stack.enter_context(launches_per_call(MetaASRTrainer, name,
+                                                  calls))
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        res = kshot.main(["--runs", ",".join(f"{k}={v}"
+                                             for k, v in runs.items()),
+                          "--data-dir", data, "--ks",
+                          ",".join(map(str, KSHOT_KS)), "--draws",
+                          str(KSHOT_DRAWS), "--max-utts",
+                          str(KSHOT_MAX_UTTS), "--out", out_json])
+    total = all_counts()
+    seconds = time.perf_counter() - t0
+    with open(out_json) as f:
+        saved = json.load(f)
+    restored = {label: int(line.rsplit(" ", 1)[1])
+                for line in buf.getvalue().splitlines()
+                for label in runs if line.startswith(f"[{label}] restored")}
+    adapt_steps = res["adapt_steps"]
+    nonzero = [k for k in KSHOT_KS if k]
+    want_k2 = adapt_steps * KSHOT_DRAWS * len(nonzero) * len(runs)
+    want_k1 = len(runs) * (1 + 2 * KSHOT_DRAWS * len(nonzero))
+    layout = (list(saved) == ["ks", "draws", "adapt_steps", *runs]
+              and saved["ks"] == list(KSHOT_KS)
+              and all(list(saved[r]) == [str(k) for k in KSHOT_KS]
+                      and set(saved[r]["0"]) == {"mean", "std"}
+                      and all(set(saved[r][str(k)]) == {"mean", "std",
+                                                        "draws"}
+                              and len(saved[r][str(k)]["draws"])
+                              == KSHOT_DRAWS for k in nonzero)
+                      for r in runs))
+    wers = [v for r in runs for p in saved[r].values()
+            for v in (p["mean"], *p.get("draws", ()))]
+    return {"train_steps": KSHOT_TRAIN_STEPS, "train": train,
+            "train_seconds": train_s, "ks": list(KSHOT_KS),
+            "draws": KSHOT_DRAWS, "max_utts": KSHOT_MAX_UTTS,
+            "seconds": seconds, "restored_steps": restored, "curve": saved,
+            "layout_is_the_reference": layout, "launches": total,
+            "launches_expected": kernel_counts(want_k1, want_k2),
+            "launches_per_call": {k: len(v) for k, v in calls.items()},
+            "ok": (saved == res and layout
+                   and restored == dict.fromkeys(runs, KSHOT_TRAIN_STEPS)
+                   and all(t["launches"] == t["launches_expected"]
+                           for t in train.values())
+                   and total == kernel_counts(want_k1, want_k2)
+                   and all(math.isfinite(w) and w >= 0 for w in wers))}
+
+
+def quality_cross_device(data, work) -> dict:
+    """kshot_curve --tiny --ks 0 over a workdir written on the cpu, run on
+    the card, and over one written on the card, run on the cpu: each
+    restores its step 2 onto the run's device."""
+    import io
+
+    from metaasr_tpu_torch.scripts import kshot_curve as kshot
+
+    out = {}
+    zero_counts()
+    for train_dev, run_dev in (("cpu", DEVICE), (DEVICE, "cpu")):
+        wd = os.path.join(work, f"tiny_{train_dev}")
+        flagship_workdir(data, wd, "fomaml", 2, train_dev, tiny=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = kshot.main(["--runs", f"fomaml={wd}", "--data-dir", data,
+                              "--tiny", "--ks", "0", "--max-utts", "4",
+                              "--device", run_dev, "--out",
+                              os.path.join(work, f"tiny_{train_dev}.json")])
+        wer = res["fomaml"]["0"]["mean"]
+        out[f"written_{train_dev}_run_{run_dev}"] = {
+            "restored_step_2": "[fomaml] restored step 2" in buf.getvalue(),
+            "zero_shot_beam_wer": wer}
+    # on the card: 2 tiny FOMAML steps (2 tasks, 3 inner steps) and one
+    # decode batch
+    return {"runs": out, "launches": all_counts(),
+            "launches_expected": kernel_counts(2 * 2 * 2 + 1, 2 * 2 * 4),
+            "ok": all(r["restored_step_2"] and math.isfinite(
+                r["zero_shot_beam_wer"]) for r in out.values())}
+
+
+def quality_paths(quality, k) -> dict:
+    """Phase 22's launches of kernel ``k`` by path."""
+    kshot = quality["kshot"]
+    return {"config2_cli_train": quality["config2"]["launches"][k],
+            "demo_meta_adaptation": quality["demo"]["launches"][k],
+            "kshot_train": sum(t["launches"][k]
+                               for t in kshot["train"].values()),
+            "kshot_curve": kshot["launches"][k],
+            "kshot_cross_device": quality["cross_device"]["launches"][k]}
+
+
+def phase_quality_scripts(torch, smi):
+    """config2 through the CLI at full width, the demo at its own width and
+    the k-shot curve at config3 width, in this process; exact launch
+    counts."""
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        data2 = os.path.join(work, "config2_data")
+        generate_dataset(data2, utts_per_accent=DEMO_UTTS,
+                         words_per_utt=(2, 4), seed=0)
+        config2 = quality_config2(torch, data2)
+        torch.cuda.empty_cache()
+        data = os.path.join(work, "demo_data")   # the demo makes it
+        demo = quality_demo(data, work)
+        torch.cuda.empty_cache()
+        kshot = quality_kshot(torch, data, work)
+        cross = quality_cross_device(data, work)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    out = {"phase": "quality_scripts", "card": smi, "config2": config2,
+           "demo": demo, "kshot": kshot, "cross_device": cross,
+           "seconds": round(seconds, 1),
+           "budget_s": QUALITY_BUDGET_S}
+    log(out)
+    if not config2["parity_small_cuda_vs_cpu"]["ok"]:
+        raise SystemExit("config2's small step on cuda differs from the cpu")
+    if not (all(math.isfinite(v) for v in config2["loss"])
+            and config2["steps"] == CONFIG2_STEPS
+            and config2["restored_step"] == CONFIG2_STEPS
+            and config2["trainer"] == "MultitaskASRTrainer"):
+        raise SystemExit("config2's CLI run failed")
+    if config2["launches"] != config2["launches_expected"]:
+        raise SystemExit(f"config2 launch counts {config2['launches']}, "
+                         f"want {config2['launches_expected']}")
+    if not demo["ok"]:
+        raise SystemExit("demo_meta_adaptation: rows, WERs or launch counts "
+                         "differ from what its code gives")
+    if not kshot["ok"]:
+        raise SystemExit("kshot_curve: restore, layout, WERs or launch "
+                         "counts differ from what its code gives")
+    if not (cross["ok"] and cross["launches"] == cross["launches_expected"]):
+        raise SystemExit("kshot_curve did not restore across devices, or "
+                         "its launch counts differ")
     return out
 
 
@@ -3631,6 +4051,7 @@ def main() -> int:
     conformer = timed(phase_conformer, torch, meta)
     bench = timed(phase_bench, torch, smi)
     timed(phase_serving_benches, torch, smi)
+    quality = timed(phase_quality_scripts, torch, smi)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],
@@ -3673,14 +4094,16 @@ def main() -> int:
                 "train_entry": entry["k1_launches"], **mono_paths("k1"),
                 **maml_paths("k1"), **new_paths("k1"), **prep_paths,
                 **lm_paths("k1"), **conformer_paths("k1"),
-                "bench": bench["measure"]["launches"]["k1"]}
+                "bench": bench["measure"]["launches"]["k1"],
+                **quality_paths(quality, "k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
                 **maml_paths("k2"), **new_paths("k2"),
                 "prep_feats_train": prep["launches"]["prep_feats_train"]["k2"],
                 **lm_paths("k2"), **conformer_paths("k2"),
-                "bench": bench["measure"]["launches"]["k2"]}
+                "bench": bench["measure"]["launches"]["k2"],
+                **quality_paths(quality, "k2")}
     k2b_paths = {**maml_paths("k2b"), **conformer_paths("k2b")}
     k2_task = k2["shapes"]["per_task"]
     k2b_shapes = k2b["shapes"]

@@ -162,9 +162,14 @@ def test_config_copy_loads_like_reference():
 def test_port_imports_neither_jax_nor_reference_package():
     """Every module of the port, imported in a fresh interpreter, pulls in
     neither ``jax`` nor ``metaasr_tpu`` (nor ``triton``: kernels are built
-    where they launch)."""
+    where they launch), and no import builds or loads a kernel: ``nvcc``
+    would run in a subprocess, and a loaded library sits in
+    ``ops._build._libs``."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, pkgutil, subprocess, sys\n"
+        "def no_build(*a, **k):\n"
+        "    raise AssertionError(f'a subprocess at import: {a[:1]}')\n"
+        "subprocess.Popen = subprocess.run = no_build\n"
         "import metaasr_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, 'metaasr_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
@@ -180,8 +185,12 @@ def test_port_imports_neither_jax_nor_reference_package():
         "          'models.lm', 'scripts.train_lm', 'scripts.bench',\n"
         "          'scripts.bench_baseline_torch', 'scripts.bench_baseline_seq',\n"
         "          'scripts.sweep_throughput', 'serve', 'scripts.decode_bench',\n"
-        "          'scripts.serve_bench', 'scripts.batcher_bench'):\n"
-        "    assert 'metaasr_tpu_torch.' + m in mods, mods\n")
+        "          'scripts.serve_bench', 'scripts.batcher_bench',\n"
+        "          'scripts.flagship_results', 'scripts.demo_meta_adaptation',\n"
+        "          'scripts.kshot_curve'):\n"
+        "    assert 'metaasr_tpu_torch.' + m in mods, mods\n"
+        "from metaasr_tpu_torch.ops import _build\n"
+        "assert not _build._libs, sorted(_build._libs)\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
