@@ -211,33 +211,43 @@ Phases, one JSON line each; any failure exits non-zero:
              cuda and on the cpu under strict fp32, two short requests
              (phase 4's bars); exact K1/K2/K2b launch counts everywhere.
 
-20. bench   — the port's headline bench (``scripts/bench.py``): (a)
-             ``bench.measure`` in this process at 4 x (16 + 16), 1 step a
-             pass: exactly 2*M K1 and M*(inner_steps+1) K2 launches for
-             each of its ``steps_run`` (warm-up and FLOP-count steps
-             included), 0 K2b/K3/K3b, the loss finite, MFU in (0, 1], the
-             passes' ms; (b) ``python -m metaasr_tpu_torch.scripts.bench
-             --steps 1`` as a subprocess: rc 0, one record in the frozen
-             unit with finite positive ``value``, ``mfu``, ``vs_baseline``
-             and ``vs_samechip_sequential``, the reference's ``workload``,
-             ``device.name`` equal to ``nvidia-smi``'s; (c) the sweep,
-             ``--points 4x4 --steps 1``: rc 0, one row and the summary.
+20. bench   — the port's headline bench (``scripts/bench.py``), cut in
+             depth (its readings are the bench's own runs at its
+             defaults), in this process: (a) ``bench.main(["--steps",
+             "1"], measure_fn=..., baseline_steps=1)``: ``bench.measure``
+             at 1 warm-up step and at most 2 passes, each baseline at 1
+             step a pass: exit 0, one record in the frozen unit
+             with finite positive ``value``, ``mfu``, ``vs_baseline`` and
+             ``vs_samechip_sequential``, the reference's ``workload``,
+             ``device.name`` equal to ``nvidia-smi``'s; (b) the sweep's
+             ``main(["--points", "4x4", "--steps", "1"])``, cut the same
+             way: exit 0, one row and the summary. For each of the
+             three ``bench.measure`` calls they make (4 x (16 + 16),
+             4 x (4 + 4), the sweep's 4 x (4 + 4)): exactly 2*M K1 and
+             M*(inner_steps+1) K2 launches for each of its ``steps_run``
+             (warm-up and FLOP-count steps included), 0 K2b/K3/K3b, the
+             loss finite, MFU in (0, 1], the passes' ms and seconds.
 
 21. serving_benches — the serving benches at full width (d 256, 12 + 6
              layers, bf16, 400 feature frames, beam 10, 48 forced steps):
              ``decode_bench.measure`` at B 16, B 16 with the LM (weight
              0.3), B 16 at vocab 512 with 40 CTC candidates, and
-             ``measure_pipelined(16, nbatches=2)``; ``serve_bench.measure``
-             cut to 2 batches of 16; ``python -m
-             metaasr_tpu_torch.scripts.batcher_bench`` as a subprocess at
-             0.5x serve_bench's pipelined rate, a 5 s leg. Exactly
+             ``measure_pipelined(16, nbatches=2)``, one timed pass each
+             (``passes=1``; the benches' default is the median of 3);
+             ``serve_bench.measure`` cut to 2 batches of 16, one pass
+             (two, so that one batch is in flight when the next is
+             dispatched);
+             ``batcher_bench.main`` at 0.5x serve_bench's pipelined rate,
+             a 3 s leg, 2 lone requests at idle (``--idle-requests 2``),
+             all in this process. Exactly
              0 K1/K2/K2b/K3/K3b launches in this process (features in, the
              LM's search step plain PyTorch), every hypothesis 48 tokens
              long, the packed read-back equal to the dict read-back (tokens
              and lengths exact, scores bit-equal), sync and pipelined
              serving texts equal batch for batch, every batcher request
-             completed and rc 0; every row beside ``nvidia-smi``'s line and
-             the phase's seconds (budget 150 s, printed, not gated).
+             completed and exit 0; every row beside ``nvidia-smi``'s line,
+             each call's seconds and the phase's (budget 150 s, printed,
+             not gated).
 
 22. quality_scripts — the quality scripts' path, in this process: (a)
              ``configs/config2_multitask_transformer.yaml`` at full width
@@ -264,8 +274,31 @@ Phases, one JSON line each; any failure exits non-zero:
              restore. The phase's seconds beside its budget (150 s,
              printed, not gated).
 
+23. flagship — ``flagship_results.main`` at config3 width (d 256, 12 + 6
+             layers, bf16 compute, 4 tasks x (4 + 4), 3 inner steps) in
+             this process on a fresh corpus of the hard profile (16
+             accents x 16 utterances) and workdir, as a user runs it:
+             (a) ``--algos fomaml,maml,reptile,multi --steps 2`` (Reptile's
+             and second-order MAML's arms), (b) ``--algos fomaml
+             --learn-inner-lr`` (Meta-SGD: its {model, inner_lr} tree
+             trained, averaged and adapting at the learned rates), (c)
+             ``--algos fomaml --eval-only`` over (a)'s FOMAML workdir
+             (restores step 2). Per call of ``meta_train``, ``train``,
+             ``meta_adapt`` and ``decode``, the exact K1/K2/K2b launches
+             the code gives (per step: FOMAML and Meta-SGD 2*M K1,
+             M*(inner+1) K2; MAML also M*inner K2b; Reptile 2*M K1,
+             M*inner K2; multitask 1 and 1; an adaptation 1 K1 and 5 K2; a
+             decode batch 1 K1; K3/K3b 0); the reference's JSON layout for
+             every tag, ``adapt5_beam_avglast5`` exactly for the two
+             FOMAML tags, every WER finite; the Meta-SGD checkpoint's
+             ``inner_lr`` leaves finite and at least one moved off its
+             initial rate. Each call's and arm's seconds beside the
+             phase's budget (150 s, printed, not gated).
+
 Then a line of the held-out WERs of phases 13, 14 and 19 (random init: a
-trend), a ``{"kernels": [...]}`` line (time, bound, launches on the main
+trend), a ``phase_seconds`` line with their sum and phase 21's B 16
+decode ms (the host's speed), a ``{"kernels": [...]}`` line (time,
+bound, launches on the main
 paths per kernel; K3/K3b also at the LM's shape) and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -292,6 +325,7 @@ Four more modes, each needing one card:
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -3245,71 +3279,86 @@ def phase_conformer(torch, meta):
 
 BENCH_STEPS = 1         # steps a pass in phase 20 (the record's: 10 / 20)
 SWEEP_STEPS = 1
+BENCH_WARMUP = 1        # bench.measure's warm-up steps there (the rule's: 3)
+BENCH_MAX_PASSES = 2    # and its timed passes (the rule's: up to 8)
+BASELINE_STEPS = 1      # timed steps a baseline pass takes (theirs: 2, 8)
 BENCH_WORKLOAD = {"tasks": 4, "k_support": 16, "k_query": 16,
                   "inner_steps": 3, "audio_sec": 4.0}   # bench.py:309-311
 
 
-def run_module(argv, timeout) -> tuple[subprocess.CompletedProcess, float]:
-    """``python -m argv...`` from the checkout's root; -> (process,
-    seconds)."""
+def run_main(main, argv) -> tuple[int, list, float]:
+    """``main(argv)`` of a port script in this process, its standard output
+    captured -> (exit code, the JSON lines it printed, seconds)."""
+    import io
+
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", *argv],
-                       cwd=os.path.dirname(os.path.abspath(__file__)),
-                       capture_output=True, text=True, timeout=timeout)
-    return r, time.perf_counter() - t0
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+             if ln.startswith("{")]
+    return rc, lines, time.perf_counter() - t0
 
 
 def phase_bench(torch, smi):
-    """The headline bench in this process (exact launch counts), as a user
-    runs it, and the sweep at one point."""
-    from metaasr_tpu_torch.scripts import bench
+    """The headline bench's ``main`` and the sweep's, in this process, as a
+    user runs them, cut in depth by their ``measure`` and
+    ``baseline_steps`` keywords; exact launch counts for every
+    ``bench.measure`` they call."""
+    from metaasr_tpu_torch.scripts import bench, sweep_throughput
 
-    m_tasks, k_shot = bench.H_TASKS, bench.H_K
-    out = {"phase": "bench"}
-    # (a) in process, every count zeroed first
+    out = {"phase": "bench", "measures": []}
+
+    def measure(*args, **kwargs):
+        kwargs.update(warmup=BENCH_WARMUP, max_passes=BENCH_MAX_PASSES)
+        before = all_counts()
+        t0 = time.perf_counter()
+        r = bench.measure(*args, **kwargs)
+        after = all_counts()
+        m = kwargs.get("m_tasks", bench.M_TASKS)
+        k = kwargs.get("k_shot", bench.K_SUPPORT)
+        n = r["steps_run"]
+        out["measures"].append({
+            "tasks": m, "shots": k, **r,
+            "unique_utts_per_sec": r["presentations_per_sec"] * 2 * k
+            / (k * bench.INNER_STEPS + k),
+            "seconds": round(time.perf_counter() - t0, 1),
+            "launches": {c: after[c] - before[c] for c in after},
+            "launches_expected": {"k1": n * 2 * m,
+                                  "k2": n * m * (bench.INNER_STEPS + 1),
+                                  "k3": 0, "k3b": 0, "k2b": 0}})
+        return r
+
     zero_counts()
-    t0 = time.perf_counter()
-    r = bench.measure(steps=BENCH_STEPS, m_tasks=m_tasks, k_shot=k_shot)
-    n = r["steps_run"]
-    out["measure"] = {
-        "tasks": m_tasks, "shots": k_shot, **r,
-        "unique_utts_per_sec": r["presentations_per_sec"] * 2 * k_shot
-        / (k_shot * bench.INNER_STEPS + k_shot),
-        "seconds": round(time.perf_counter() - t0, 1),
-        "launches": all_counts(),
-        "launches_expected": {"k1": n * 2 * m_tasks,
-                              "k2": n * m_tasks * (bench.INNER_STEPS + 1),
-                              "k3": 0, "k3b": 0, "k2b": 0}}
+    # (a) the record: both measurements and both baselines
+    rc, lines, sec = run_main(
+        functools.partial(bench.main, measure_fn=measure,
+                          baseline_steps=BASELINE_STEPS),
+        ["--steps", str(BENCH_STEPS)])
+    out["record"] = {"rc": rc, "seconds": round(sec, 1),
+                     "line": lines[-1] if lines else None}
+    out["launches"] = all_counts()
     torch.cuda.empty_cache()
-    # (b) the record, as a user runs it
-    proc, sec = run_module(["metaasr_tpu_torch.scripts.bench", "--steps",
-                            str(BENCH_STEPS)], timeout=600)
-    rec = None
-    if proc.returncode == 0:
-        rec = json.loads(proc.stdout.strip().splitlines()[-1])
-    out["record"] = {"rc": proc.returncode, "seconds": round(sec, 1),
-                     "line": rec}
-    # (c) the sweep at one point
-    proc_s, sec_s = run_module(["metaasr_tpu_torch.scripts.sweep_throughput",
-                                "--points", "4x4", "--steps",
-                                str(SWEEP_STEPS)], timeout=300)
-    lines = [json.loads(ln) for ln in proc_s.stdout.strip().splitlines()
-             if ln.startswith("{")]
-    rows = [x for x in lines if "summary" not in x]
-    out["sweep"] = {"rc": proc_s.returncode, "seconds": round(sec_s, 1),
-                    "lines": lines}
+    # (b) the sweep at one point
+    rc_s, lines_s, sec_s = run_main(
+        functools.partial(sweep_throughput.main, measure=measure),
+        ["--points", "4x4", "--steps", str(SWEEP_STEPS)])
+    out["sweep"] = {"rc": rc_s, "seconds": round(sec_s, 1),
+                    "lines": lines_s}
+    torch.cuda.empty_cache()
     log(out)
 
-    m = out["measure"]
-    if m["launches"] != m["launches_expected"]:
-        raise SystemExit(f"bench launch counts {m['launches']}, want "
-                         f"{m['launches_expected']}")
-    if not (math.isfinite(m["meta_loss"]) and 0 < m["mfu"] <= 1):
-        raise SystemExit(f"bench: meta loss {m['meta_loss']}, mfu "
-                         f"{m['mfu']}")
-    if rec is None:
-        print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
-        raise SystemExit(f"the bench exited {proc.returncode}")
+    for m in out["measures"]:
+        if m["launches"] != m["launches_expected"]:
+            raise SystemExit(f"bench launch counts {m['launches']}, want "
+                             f"{m['launches_expected']}")
+        if not (math.isfinite(m["meta_loss"]) and 0 < m["mfu"] <= 1):
+            raise SystemExit(f"bench: meta loss {m['meta_loss']}, mfu "
+                             f"{m['mfu']}")
+    rec = out["record"]["line"]
+    if len(out["measures"]) != 3 or rec is None or out["record"]["rc"]:
+        raise SystemExit(f"the bench exited {out['record']['rc']} after "
+                         f"{len(out['measures'])} measurements")
 
     def positive(x):
         return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
@@ -3321,53 +3370,71 @@ def phase_bench(torch, smi):
             and rec["device"]["name"] == smi.rsplit(",", 1)[0].strip()):
         raise SystemExit(f"the bench's record is not as the contract says: "
                          f"{rec}")
-    if not (proc_s.returncode == 0 and len(rows) == 1
-            and "error" not in rows[0] and lines[-1].get("summary")):
-        print(proc_s.stdout[-3000:], proc_s.stderr[-3000:], file=sys.stderr)
-        raise SystemExit("the sweep failed")
+    rows = [x for x in lines_s if "summary" not in x]
+    if not (rc_s == 0 and len(rows) == 1 and "error" not in rows[0]
+            and lines_s[-1].get("summary")):
+        raise SystemExit(f"the sweep failed: {lines_s}")
     return out
 
 
 # ------------------------------------------------ the serving benches ----
 
-SERVE_BENCH_BATCHES = 2     # serve_bench's batches in phase 21 (default 8)
-PIPELINED_BATCHES = 2       # measure_pipelined's batches there (default 8)
+SERVE_BENCH_BATCHES = 2     # serve_bench's batches in phase 21 (default 8):
+PIPELINED_BATCHES = 2       # measure_pipelined's (8); two, so a batch is in
+                            # flight when the next is dispatched
+BENCH_PASSES = 1            # timed passes of each reading (default 3)
 BATCHER_LOADS = (0.5,)  # offered loads, x serve_bench's pipelined rate
-BATCHER_SECS = 5
+BATCHER_SECS = 3
+BATCHER_IDLE_REQUESTS = 2   # lone requests at idle (default 10)
 SERVING_BENCHES_BUDGET_S = 150
 
 
 def phase_serving_benches(torch, smi):
     """decode_bench, serve_bench and batcher_bench at full width, cut by
     their keyword arguments and flags; exact (zero) launch counts."""
-    from metaasr_tpu_torch.scripts import decode_bench, serve_bench
+    from metaasr_tpu_torch.scripts import (batcher_bench, decode_bench,
+                                           serve_bench)
 
     t0 = time.perf_counter()
+    sub = {}
+
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sub[name] = round(time.perf_counter() - t, 1)
+        return out
+
     zero_counts()
-    decode = [decode_bench.measure(16),
-              decode_bench.measure(16, lm_weight=0.3),
-              decode_bench.measure(16, vocab=512, ctc_candidates=40)]
-    pipelined = decode_bench.measure_pipelined(16,
-                                               nbatches=PIPELINED_BATCHES)
+    decode = [timed("decode_b16", decode_bench.measure, 16,
+                    passes=BENCH_PASSES),
+              timed("decode_b16_lm", decode_bench.measure, 16,
+                    lm_weight=0.3, passes=BENCH_PASSES),
+              timed("decode_b16_v512", decode_bench.measure, 16, vocab=512,
+                    ctc_candidates=40, passes=BENCH_PASSES)]
+    pipelined = timed("pipelined", decode_bench.measure_pipelined, 16,
+                      nbatches=PIPELINED_BATCHES, passes=BENCH_PASSES)
     torch.cuda.empty_cache()
-    serve = serve_bench.measure(batches=SERVE_BENCH_BATCHES)
-    launches = all_counts()
+    serve = timed("serve_bench", serve_bench.measure,
+                  batches=SERVE_BENCH_BATCHES, passes=BENCH_PASSES)
     torch.cuda.empty_cache()
     rates = [round(f * serve["pipelined_utts_per_sec"], 2)
              for f in BATCHER_LOADS]
-    proc, sec = run_module(["metaasr_tpu_torch.scripts.batcher_bench",
-                            "--loads", ",".join(str(r) for r in rates),
-                            "--secs", str(BATCHER_SECS)], timeout=600)
-    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
-             if ln.startswith("{")]
+    rc, lines, sec = run_main(batcher_bench.main, [
+        "--loads", ",".join(str(r) for r in rates), "--secs",
+        str(BATCHER_SECS), "--idle-requests", str(BATCHER_IDLE_REQUESTS)])
+    sub["batcher_bench"] = round(sec, 1)
+    launches = all_counts()
+    torch.cuda.empty_cache()
     legs = [x for x in lines if "offered_utts_per_sec" in x]
     seconds = time.perf_counter() - t0
     out = {"phase": "serving_benches", "card": smi, "decode": decode,
            "pipelined": pipelined, "serve": serve,
-           "batcher": {"rc": proc.returncode, "seconds": round(sec, 1),
+           "batcher": {"rc": rc, "seconds": round(sec, 1),
                        "loads": rates, "secs": BATCHER_SECS,
+                       "idle_requests": BATCHER_IDLE_REQUESTS,
                        "lines": lines},
-           "launches": launches, "seconds": round(seconds, 1),
+           "passes": BENCH_PASSES, "launches": launches,
+           "seconds_by_call": sub, "seconds": round(seconds, 1),
            "budget_s": SERVING_BENCHES_BUDGET_S}
     log(out)
     if any(launches.values()):
@@ -3380,13 +3447,12 @@ def phase_serving_benches(torch, smi):
         raise SystemExit("the packed read-back differs from the dict one")
     if not serve["sync_pipelined_texts_equal"]:
         raise SystemExit("sync and pipelined serving gave other texts")
-    if not (proc.returncode == 0 and len(legs) == len(rates)
+    if not (rc == 0 and len(legs) == len(rates)
             and all(x["completed"] == x["sent"] for x in legs)
             and any("deadline_adherence" in x for x in lines)
             and any("saturation_utts_per_sec" in x for x in lines)):
-        print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
-        raise SystemExit("the batcher bench failed or left requests "
-                         "unanswered")
+        raise SystemExit(f"the batcher bench failed or left requests "
+                         f"unanswered: {lines}")
     return out
 
 
@@ -3609,7 +3675,7 @@ def flagship_workdir(data, wd, algo, steps, device, tiny=False):
     cfg = flagship.make_cfg(algo, steps, data)
     cfg.model.vocab_size = tok.vocab_size
     if tiny:
-        kshot.apply_tiny(cfg)
+        flagship.apply_tiny(cfg)
     dsets = load_accent_datasets(data, tok)
     heldout = {flagship.HELDOUT: dsets.pop(flagship.HELDOUT)}
     task = ASRTask(cfg, tok.sos_eos_id, device=device)
@@ -3783,6 +3849,176 @@ def phase_quality_scripts(torch, smi):
         raise SystemExit("kshot_curve did not restore across devices, or "
                          "its launch counts differ")
     return out
+
+
+# --------------------------------------------- the flagship quality table ----
+
+FLAGSHIP_STEPS = 2          # flagship_results --steps (default 1500)
+FLAGSHIP_UTTS = 16          # its --utts-per-accent (default 192)
+FLAGSHIP_BUDGET_S = 150
+FLAGSHIP_CALLS = (          # (name, flags): the arms, Meta-SGD, --eval-only
+    ("arms", ("--algos", "fomaml,maml,reptile,multi")),
+    ("metasgd", ("--algos", "fomaml", "--learn-inner-lr")),
+    ("eval_only", ("--algos", "fomaml", "--eval-only")))
+
+
+def flagship_expected(flagship, argv, n_heldout: int) -> tuple[dict, dict]:
+    """The launches each trainer call of one ``flagship_results.main(argv)``
+    makes, from the code -> ({"Cls.method": [counts, ...]}, {tag: keys of
+    its results entry}). Per step: FOMAML / Meta-SGD K1 2·M, K2
+    M·(inner+1); MAML the same and K2b M·inner; Reptile K1 2·M, K2 M·inner
+    (its inner steps on support + query at once, no query backward);
+    multitask K1 1, K2 1. Each adaptation K1 1, K2 5; each decode batch
+    K1 1."""
+    args = flagship.build_parser().parse_args(argv)
+    calls, layout = {}, {}
+    entry = {"zero_shot_greedy", "zero_shot_beam", "adapt5_greedy",
+             "adapt5_beam", "adapt5_beam_draws", "train_seconds"}
+    for algo in args.algos.split(","):
+        cfg = flagship.arm_config(args, algo, "", 30)
+        m, n = cfg.meta, args.steps
+        k2b = 0
+        if algo == "multi":
+            name, k1, k2 = "MultitaskASRTrainer.train", n, n
+            cfg = flagship.make_cfg("fomaml", n, "")   # the evaluation's
+        else:
+            name, k1 = "MetaASRTrainer.meta_train", n * 2 * m.tasks_per_batch
+            k2 = n * m.tasks_per_batch * m.inner_steps
+            if algo != "reptile":
+                k2 += n * m.tasks_per_batch
+            if algo == "maml":
+                k2b = n * m.tasks_per_batch * m.inner_steps
+        if algo == "multi" or not args.eval_only:
+            calls.setdefault(name, []).append(
+                {**kernel_counts(k1, k2), "k2b": k2b})
+        avg = algo == "fomaml" and not args.eval_only
+        bsz = cfg.data.batch_size
+        zs = decode_batches(n_heldout - 8 if n_heldout > 8 else n_heldout,
+                            bsz, 64)
+        test = decode_batches(n_heldout - cfg.meta.k_support, bsz, 64)
+        seeds = len(flagship.ADAPT_SEEDS) * (2 if avg else 1)
+        calls.setdefault("MetaASRTrainer.meta_adapt", []).extend(
+            [kernel_counts(1, 5)] * seeds)
+        calls.setdefault("MetaASRTrainer.decode", []).extend(
+            [kernel_counts(b) for b in [zs, zs] + [test] * (
+                2 * len(flagship.ADAPT_SEEDS)
+                + (len(flagship.ADAPT_SEEDS) if avg else 0))])
+        layout[flagship.arm_tag(args, algo)] = (
+            entry | {"adapt5_beam_avglast5"} if avg else entry)
+    return calls, layout
+
+
+def flagship_entry_ok(entry: dict, keys: set, draws: int) -> bool:
+    """The reference's keys, ``draws`` beam draws, every WER finite."""
+    wers = [entry["zero_shot_greedy"]["wer"], entry["zero_shot_beam"]["wer"],
+            *entry["adapt5_beam_draws"]]
+    wers += [entry[k][s] for k in ("adapt5_greedy", "adapt5_beam",
+                                   "adapt5_beam_avglast5")
+             if k in entry for s in ("mean", "std")]
+    return (set(entry) == keys and len(entry["adapt5_beam_draws"]) == draws
+            and all(math.isfinite(w) and w >= 0 for w in wers))
+
+
+def phase_flagship(torch, smi):
+    """flagship_results.main at config3 width, in this process, on a fresh
+    corpus and workdir: the four arms, Meta-SGD, and --eval-only over the
+    arms' FOMAML workdir; exact launch counts per trainer call."""
+    import io
+
+    from metaasr_tpu_torch.data.dataset import Manifest
+    from metaasr_tpu_torch.scripts import flagship_results as flagship
+    from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
+    from metaasr_tpu_torch.train.mono import MultitaskASRTrainer
+
+    t_phase = time.perf_counter()
+    out = {"phase": "flagship", "card": smi, "steps": FLAGSHIP_STEPS,
+           "utts_per_accent": FLAGSHIP_UTTS, "calls": {}}
+    ok = True
+    with tempfile.TemporaryDirectory() as work:
+        data = os.path.join(work, "data")
+        common = ["--steps", str(FLAGSHIP_STEPS), "--profile", "hard",
+                  "--utts-per-accent", str(FLAGSHIP_UTTS), "--data-dir", data,
+                  "--workdir", os.path.join(work, "runs"), "--out",
+                  os.path.join(work, "flagship.json")]
+        for name, flags in FLAGSHIP_CALLS:
+            argv = [*common, *flags]
+            calls, buf = {}, io.StringIO()
+            t0 = time.perf_counter()
+            zero_counts()
+            with contextlib.ExitStack() as stack:
+                for cls, method in ((MetaASRTrainer, "meta_train"),
+                                    (MultitaskASRTrainer, "train"),
+                                    (MetaASRTrainer, "meta_adapt"),
+                                    (MetaASRTrainer, "decode")):
+                    stack.enter_context(launches_per_call(cls, method,
+                                                          calls))
+                stack.enter_context(contextlib.redirect_stdout(buf))
+                res = flagship.main(argv)
+            total = all_counts()
+            seconds = time.perf_counter() - t0
+            n = len(Manifest.load(os.path.join(
+                data, f"{flagship.HELDOUT}.jsonl")).utts)
+            want, layout = flagship_expected(flagship, argv, n)
+            want_total = {k: sum(c[k] for cs in want.values() for c in cs)
+                          for k in total}
+            entries = {t: e for t, e in res.items() if isinstance(e, dict)}
+            rec = {"flags": list(flags), "seconds": round(seconds, 1),
+                   "train_seconds": {t: e["train_seconds"]
+                                     for t, e in entries.items()},
+                   "results": entries, "launches": total,
+                   "launches_expected": want_total,
+                   "launches_per_call": calls,
+                   "launches_per_call_expected": want,
+                   "layout_is_the_reference": (
+                       list(entries) == list(layout) and all(
+                           flagship_entry_ok(entries[t], keys,
+                                             len(flagship.ADAPT_SEEDS))
+                           for t, keys in layout.items()))}
+            if name == "eval_only":
+                rec["restored_step_2"] = (
+                    f"[fomaml] eval-only from step {FLAGSHIP_STEPS}"
+                    in buf.getvalue())
+            if name == "metasgd":
+                state = torch.load(os.path.join(
+                    work, "runs", "hard_fomaml@metasgd", "ckpts",
+                    f"step_{FLAGSHIP_STEPS}.pt"), map_location="cpu",
+                    weights_only=True)
+                lr = state["params"]["inner_lr"]
+                init = flagship.make_cfg("fomaml", 1, "").meta.inner_lr
+                init = float(torch.tensor(init, dtype=torch.float32))
+                rec["inner_lr"] = {
+                    "leaves": len(lr), "init": init,
+                    "finite": all(bool(torch.isfinite(v).all())
+                                  for v in lr.values()),
+                    "moved": sum(float(v) != init for v in lr.values()),
+                    "min": min(float(v) for v in lr.values()),
+                    "max": max(float(v) for v in lr.values())}
+            rec["ok"] = (rec["layout_is_the_reference"] and calls == want
+                         and total == want_total
+                         and rec.get("restored_step_2", True)
+                         and (name != "metasgd"
+                              or (rec["inner_lr"]["finite"]
+                                  and rec["inner_lr"]["moved"] >= 1)))
+            ok = ok and rec["ok"]
+            out["calls"][name] = rec
+            torch.cuda.empty_cache()
+    out["seconds"] = round(time.perf_counter() - t_phase, 1)
+    out["budget_s"] = FLAGSHIP_BUDGET_S
+    log(out)
+    for name, rec in out["calls"].items():
+        if not rec["ok"]:
+            raise SystemExit(
+                f"flagship_results ({name}): layout, WERs, restore, "
+                f"inner rates or launch counts differ from what its code "
+                f"gives: {rec['launches_per_call']} against "
+                f"{rec['launches_per_call_expected']}")
+    return out
+
+
+def flagship_paths(flag, k) -> dict:
+    """Phase 23's launches of kernel ``k`` by call."""
+    return {f"flagship_{name}": rec["launches"][k]
+            for name, rec in flag["calls"].items()}
 
 
 def last_line(torch, kind) -> None:
@@ -4050,15 +4286,19 @@ def main() -> int:
     lm = timed(phase_lm_fusion, torch, peaks, serving, smi)
     conformer = timed(phase_conformer, torch, meta)
     bench = timed(phase_bench, torch, smi)
-    timed(phase_serving_benches, torch, smi)
+    serving_benches = timed(phase_serving_benches, torch, smi)
     quality = timed(phase_quality_scripts, torch, smi)
+    flag = timed(phase_flagship, torch, smi)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],
         "fomaml_config3_conformer": conformer["cli"]["heldout_wer"],
         "note": "random init, 4 FOMAML / 2 MAML / 2 conformer FOMAML "
                 "meta-steps on synthetic accents: a trend, not a result"}})
-    log({"phase_seconds": seconds})
+    # the host's speed beside the run's seconds: phase 21's B 16 decode
+    log({"phase_seconds": seconds,
+         "total_phase_seconds": round(sum(seconds.values()), 1),
+         "b16_decode_ms": serving_benches["decode"][0]["ms_per_batch"]})
     # the meta-test paths (phases 13-15), by kernel
     test_paths = {**meta_test["launches"],
                   "maml_heldout_eval": maml_entry["heldout_eval"]["launches"],
@@ -4094,17 +4334,18 @@ def main() -> int:
                 "train_entry": entry["k1_launches"], **mono_paths("k1"),
                 **maml_paths("k1"), **new_paths("k1"), **prep_paths,
                 **lm_paths("k1"), **conformer_paths("k1"),
-                "bench": bench["measure"]["launches"]["k1"],
-                **quality_paths(quality, "k1")}
+                "bench": sum(m["launches"]["k1"] for m in bench["measures"]),
+                **quality_paths(quality, "k1"), **flagship_paths(flag, "k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
                 **maml_paths("k2"), **new_paths("k2"),
                 "prep_feats_train": prep["launches"]["prep_feats_train"]["k2"],
                 **lm_paths("k2"), **conformer_paths("k2"),
-                "bench": bench["measure"]["launches"]["k2"],
-                **quality_paths(quality, "k2")}
-    k2b_paths = {**maml_paths("k2b"), **conformer_paths("k2b")}
+                "bench": sum(m["launches"]["k2"] for m in bench["measures"]),
+                **quality_paths(quality, "k2"), **flagship_paths(flag, "k2")}
+    k2b_paths = {**maml_paths("k2b"), **conformer_paths("k2b"),
+                 **flagship_paths(flag, "k2b")}
     k2_task = k2["shapes"]["per_task"]
     k2b_shapes = k2b["shapes"]
     k2b_task = k2b_shapes["fused"]     # [16, 99, 65]: config4's per-task batch

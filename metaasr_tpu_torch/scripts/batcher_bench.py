@@ -32,6 +32,10 @@ exits 1):
 
     python -m metaasr_tpu_torch.scripts.batcher_bench [--loads 5,10,...]
         [--secs 15] [--max-wait-ms 10] [--max-inflight 2] [--tiny]
+        [--idle-requests 10]
+
+``--idle-requests`` sets the lone requests at idle (10) and the direct
+batch-1 decodes beside them (half as many); fewer are for smoke runs.
 """
 
 from __future__ import annotations
@@ -143,6 +147,9 @@ def main(argv=None) -> int:
                     help="tiny model + short legs: a harness check")
     ap.add_argument("--max-inflight", type=int, default=2,
                     help="DynamicBatcher in-flight dispatch cap")
+    ap.add_argument("--idle-requests", type=int, default=10,
+                    help="lone requests at idle (their median is "
+                    "idle_p50_ms); half as many direct B=1 decodes")
     args = ap.parse_args(argv)
     if args.tiny:
         args.secs = min(args.secs, 3.0)
@@ -163,18 +170,20 @@ def main(argv=None) -> int:
         # --- deadline adherence: one lone request at idle ---
         with DynamicBatcher(dec, max_wait_ms=args.max_wait_ms) as lone:
             lats = []
-            for _ in range(10):
+            for _ in range(args.idle_requests):
                 t0 = time.perf_counter()
                 lone.submit(np.asarray(rng.standard_normal((T_FEAT, 80)),
                                        np.float32)).result(timeout=60)
                 lats.append(time.perf_counter() - t0)
             # single-request reference: direct B=1 decode, no batcher
+            direct = max(1, args.idle_requests // 2)
             t0 = time.perf_counter()
-            for _ in range(5):
+            for _ in range(direct):
                 dec.transcribe([np.asarray(
                     rng.standard_normal((T_FEAT, 80)), np.float32)])
-            direct_ms = (time.perf_counter() - t0) / 5 * 1e3
-            idle = {"idle_p50_ms": round(sorted(lats)[5] * 1e3, 1),
+            direct_ms = (time.perf_counter() - t0) / direct * 1e3
+            idle = {"idle_p50_ms": round(
+                        sorted(lats)[len(lats) // 2] * 1e3, 1),
                     "direct_b1_ms": round(direct_ms, 1),
                     "max_wait_ms": args.max_wait_ms}
             print(json.dumps({"deadline_adherence": idle}), flush=True)

@@ -214,14 +214,17 @@ def _profile(torch, step, seed: int, dev) -> int:
 
 
 def measure(steps: int = 20, m_tasks: int = M_TASKS, k_shot: int = K_SUPPORT,
-            *, cfg=None, device=None) -> dict:
+            *, cfg=None, device=None, warmup: int = 3,
+            max_passes: int = MAX_PASSES) -> dict:
     """Time the meta-step at ``m_tasks`` x (``k_shot`` + ``k_shot``) by the
     reference's rule: 1 + 3 warm-up steps, then passes of ``steps``
     enqueued steps, each ending in a device synchronise and a read of the
     last loss, until the two fastest agree within 10% or 8 passes; the
     SECOND-FASTEST pass is reported. Then one more step under
     ``FlopCounterMode`` for the MFU. ``cfg`` defaults to
-    :func:`bench_config`; ``device`` to CUDA (no fallback).
+    :func:`bench_config`; ``device`` to CUDA (no fallback). ``warmup``
+    (at least 1) and ``max_passes`` (at least 2) below the rule's 3 and 8
+    are for smoke runs.
 
     -> {presentations_per_sec, mfu (None off CUDA), flops_per_step,
     ms_per_step, passes_ms (ms per step of each pass), steps_per_pass,
@@ -251,7 +254,7 @@ def measure(steps: int = 20, m_tasks: int = M_TASKS, k_shot: int = K_SUPPORT,
 
     seed = 0
     sync(step(seed))                    # first call: lazy set-up, builds
-    for _ in range(3):                  # warm-up
+    for _ in range(warmup):
         loss = step(seed)
     sync(loss)
     if _env_flag("BENCH_PROFILE"):
@@ -266,7 +269,7 @@ def measure(steps: int = 20, m_tasks: int = M_TASKS, k_shot: int = K_SUPPORT,
         sync(loss)
         return (time.perf_counter() - t0) / steps
 
-    dt, dts = steady_pass_time(run_pass)
+    dt, dts = steady_pass_time(run_pass, max_passes)
     with FlopCounterMode(display=False) as counter:
         last = sync(step(fold_in(seed, 99)))
     flops = float(counter.get_total_flops())
@@ -363,7 +366,10 @@ def _baseline(name: str, fn) -> float | None:
         return None
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, measure_fn=None, baseline_steps=None) -> int:
+    """The record. ``measure_fn`` (default :func:`measure`) and
+    ``baseline_steps`` (default each baseline's own) are for smoke runs
+    that cut the depth."""
     import torch
 
     ap = argparse.ArgumentParser(description="FOMAML meta-train "
@@ -382,15 +388,17 @@ def main(argv=None) -> int:
     )
 
     device = card()
-    head = measure(steps=args.steps or 10, m_tasks=H_TASKS, k_shot=H_K)
+    measure_fn = measure_fn or measure
+    steps = {} if baseline_steps is None else {"steps": baseline_steps}
+    head = measure_fn(steps=args.steps or 10, m_tasks=H_TASKS, k_shot=H_K)
     torch.cuda.empty_cache()
-    compat = measure(steps=args.steps or 20)
+    compat = measure_fn(steps=args.steps or 20)
     torch.cuda.empty_cache()
-    base = _baseline("bench_baseline_torch",
-                     lambda: bench_baseline_torch.measure(device="cuda"))
+    base = _baseline("bench_baseline_torch", lambda: bench_baseline_torch
+                     .measure(device="cuda", **steps))
     torch.cuda.empty_cache()
-    seq = _baseline("bench_baseline_seq",
-                    lambda: bench_baseline_seq.measure(device="cuda"))
+    seq = _baseline("bench_baseline_seq", lambda: bench_baseline_seq
+                    .measure(device="cuda", **steps))
     print(json.dumps(record(head, compat, base, seq, device)))
     return 0
 

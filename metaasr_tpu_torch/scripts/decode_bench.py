@@ -140,15 +140,15 @@ def _setup(bsz: int, beam: int, lm_weight: float = 0.0, vocab: int = VOCAB,
     return run
 
 
-def median3(run_pass) -> float:
-    """The reference's rule: 3 passes of ``run_pass`` -> the median's
-    seconds."""
+def median_of(run_pass, passes: int = 3) -> float:
+    """The median's seconds of ``passes`` passes of ``run_pass`` (the
+    reference's rule is 3; fewer are for smoke runs)."""
     dts = []
-    for _ in range(3):
+    for _ in range(passes):
         t0 = time.perf_counter()
         run_pass()
         dts.append(time.perf_counter() - t0)
-    return sorted(dts)[1]
+    return sorted(dts)[passes // 2]
 
 
 def row(bsz: int, beam: int, dt: float, lm_weight: float = 0.0,
@@ -169,7 +169,7 @@ def row(bsz: int, beam: int, dt: float, lm_weight: float = 0.0,
 
 def measure(bsz: int, beam: int = 10, lm_weight: float = 0.0,
             vocab: int = VOCAB, ctc_candidates: int = 0, *,
-            device=None) -> dict:
+            device=None, passes: int = 3) -> dict:
     """The latency row of one batch; ``hyp_lengths`` is [min, max] of the
     last pass's hypothesis lengths (STEPS, both, when the forced length
     held)."""
@@ -180,7 +180,7 @@ def measure(bsz: int, beam: int = 10, lm_weight: float = 0.0,
         last["out"] = run()
         _ = int(last["out"]["lengths"][0, 0])
 
-    out = row(bsz, beam, median3(one_pass), lm_weight, vocab,
+    out = row(bsz, beam, median_of(one_pass, passes), lm_weight, vocab,
               ctc_candidates)
     lengths = last["out"]["lengths"]
     out["hyp_lengths"] = [int(lengths.min()), int(lengths.max())]
@@ -215,7 +215,7 @@ def same_readback(out: dict) -> bool:
 
 
 def measure_pipelined(bsz: int, beam: int = 10, nbatches: int = 8, *,
-                      device=None) -> dict:
+                      device=None, passes: int = 3) -> dict:
     """Serving-mode throughput: every batch dispatched before any host read,
     full tokens + lengths read back per batch; beside it the sync-read loop
     (same read-back) and the packed loop (one int32 tensor, one copy to
@@ -240,7 +240,7 @@ def measure_pipelined(bsz: int, beam: int = 10, nbatches: int = 8, *,
             read(out)
         last["out"] = outs[-1]
 
-    dt_sync, dt_pipe = median3(sync), median3(pipelined)
+    dt_sync, dt_pipe = median_of(sync, passes), median_of(pipelined, passes)
     _ = unpack_decode_outputs(pack_decode_outputs(run(feats[0])))
 
     def packed():
@@ -248,7 +248,7 @@ def measure_pipelined(bsz: int, beam: int = 10, nbatches: int = 8, *,
         for out in outs:
             unpack_decode_outputs(out)              # the one copy a batch
 
-    dt_packed = median3(packed)
+    dt_packed = median_of(packed, passes)
     return {**pipelined_row(bsz, beam, nbatches, dt_sync, dt_pipe,
                             dt_packed),
             "packed_equals_dict": same_readback(last["out"])}

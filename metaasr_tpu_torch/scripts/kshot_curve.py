@@ -40,7 +40,8 @@ import tempfile
 
 import numpy as np
 
-from metaasr_tpu_torch.scripts.flagship_results import HELDOUT, make_cfg
+from metaasr_tpu_torch.scripts.flagship_results import (HELDOUT, apply_tiny,
+                                                      make_cfg)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,19 +70,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device (default cuda; 'cpu' runs the plain "
                     "PyTorch path)")
     return ap
-
-
-def apply_tiny(cfg) -> None:
-    """``--tiny``: the CPU tests' width. ``frontend.use_pallas`` is kept as
-    the reference sets it; the port's front-end does not read it."""
-    cfg.model.d_model, cfg.model.num_heads = 32, 2
-    cfg.model.d_ff = 64
-    cfg.model.num_encoder_layers = 2
-    cfg.model.num_decoder_layers = 2
-    cfg.model.dtype = "float32"
-    cfg.frontend.use_pallas = False
-    cfg.meta.tasks_per_batch = 2
-    cfg.data.max_frames = 200
 
 
 def run_config(label: str, data_dir: str, seed: int, tiny: bool,

@@ -46,7 +46,7 @@ import torch
 from metaasr_tpu_torch.config import Config
 from metaasr_tpu_torch.data.tokenizer import CharTokenizer
 from metaasr_tpu_torch.scripts.bench import card
-from metaasr_tpu_torch.scripts.decode_bench import median3, no_card_line
+from metaasr_tpu_torch.scripts.decode_bench import median_of, no_card_line
 from metaasr_tpu_torch.serve.export import ServingDecoder, write_bundle
 from metaasr_tpu_torch.task import build_model
 from metaasr_tpu_torch.weights import random_state_dict, state_dict_to_flax
@@ -112,10 +112,11 @@ def record(batches: int, t_sync: float, t_pipe: float, t_pipe16: float,
     }
 
 
-def measure(batches: int = BATCHES, *, device=None) -> dict:
+def measure(batches: int = BATCHES, *, device=None, passes: int = 3) -> dict:
     """Write the fp32 and bf16 bundles, serve ``batches`` batches of 16
-    sync and pipelined (the median of 3 passes each, after one warm-up
-    batch) -> :func:`record` plus ``sync_pipelined_texts_equal``."""
+    sync and pipelined (the median of 3 passes each, or of ``passes``,
+    after one warm-up batch) -> :func:`record` plus
+    ``sync_pipelined_texts_equal``."""
     cfg, tok = bench_config()
     feats_batches = draw_batches(tok.vocab_size, batches)
     texts = {}
@@ -136,13 +137,13 @@ def measure(batches: int = BATCHES, *, device=None) -> dict:
             texts["sync"] = [[r["text"] for r in dec.transcribe(b)]
                              for b in feats_batches]
 
-        t_sync = median3(sync)
-        t_pipe = median3(pipelined_fn(dec, "pipelined"))
+        t_sync = median_of(sync, passes)
+        t_pipe = median_of(pipelined_fn(dec, "pipelined"), passes)
         write_seeded_bundle(d16, cfg, tok, [(BSZ, T_FEAT)],
                             weights_dtype="bfloat16")
         dec16 = ServingDecoder(d16, device=device)
         dec16.transcribe(feats_batches[0])
-        t_pipe16 = median3(pipelined_fn(dec16, "bf16"))
+        t_pipe16 = median_of(pipelined_fn(dec16, "bf16"), passes)
         sizes = [os.path.getsize(os.path.join(p, "params.npz"))
                  for p in (d, d16)]
     return {**record(batches, t_sync, t_pipe, t_pipe16, *sizes),

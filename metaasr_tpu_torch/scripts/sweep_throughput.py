@@ -70,7 +70,9 @@ def sweep(points, steps: int, measure=bench.measure) -> list[dict]:
     return rows
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, measure=bench.measure) -> int:
+    """``measure`` other than ``bench.measure`` is for smoke runs that cut
+    the depth."""
     import torch
 
     ap = argparse.ArgumentParser()
@@ -83,7 +85,7 @@ def main(argv=None) -> int:
         print(bench.no_card_line("the sweep"))
         return 1
     device = bench.card()
-    rows = sweep(parse_points(args.points), args.steps)
+    rows = sweep(parse_points(args.points), args.steps, measure)
     if rows:
         best = max(rows, key=lambda r: r["unique_utts_per_sec"])
         print(json.dumps({"summary": "best operating point", **best,

@@ -1,7 +1,11 @@
 """The port's acceptance drill (``metaasr_tpu_torch/scripts/acceptance.py``),
 composition only, on the CPU: every stage (CV prep, meta-train, adapt,
 adapted npz, export, serve) runs green as a subprocess of the port's entry
-points, as ``tests/test_acceptance.py`` holds the reference's drill."""
+points, as ``tests/test_acceptance.py`` holds the reference's drill.
+
+The stages inherit ``OMP_NUM_THREADS=1``: torch in each holds one
+intra-op thread, as the port's in-process tests do
+(``tests/torch_threads.py``)."""
 
 import json
 import math
@@ -18,7 +22,8 @@ def test_acceptance_drill_smoke(tmp_path):
         [sys.executable, "-m", "metaasr_tpu_torch.scripts.acceptance",
          "--out", out, "--smoke", "--steps", "6", "--utts", "10",
          "--device", "cpu"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     assert "ACCEPTANCE GREEN" in r.stdout
     with open(os.path.join(out, "acceptance.json")) as f:

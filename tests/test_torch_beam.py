@@ -13,6 +13,7 @@ from metaasr_tpu.models.transformer import TransformerASR as FlaxTransformer
 from metaasr_tpu_torch.decode import beam_search as bs
 from metaasr_tpu_torch.models.transformer import TransformerASR
 from metaasr_tpu_torch.weights import flax_to_state_dict
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 VOCAB = 8
 EOS = VOCAB - 1

@@ -43,6 +43,7 @@ from metaasr_tpu_torch.train.optimizer import Optimizer
 from metaasr_tpu_torch.weights import flatten_tree, flax_to_params, params_to_flax
 from tests.test_m2_models import tiny_cfg
 from tests.test_torch_meta import _l2rel, port_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_SAMPLES, TINY_TOKENS = 16000, 6
@@ -187,6 +188,14 @@ def test_steady_pass_time_rule(dts, passes, want):
     assert calls == list(range(passes))
     assert seen == dts[:passes]
     assert dt == want
+
+
+def test_steady_pass_time_capped_for_smoke_runs():
+    """``max_passes`` 2 (``--max-passes``, the smoke's depth): two passes
+    whatever they read, the slower one reported (the second-fastest)."""
+    dts = iter([1.0, 2.0, 1.01])
+    dt, seen = bench.steady_pass_time(lambda p: next(dts), max_passes=2)
+    assert (dt, seen) == (2.0, [1.0, 2.0])
 
 
 @pytest.mark.parametrize("env, want", [

@@ -33,6 +33,7 @@ from metaasr_tpu_torch.data.tokenizer import _BaseTokenizer
 from metaasr_tpu_torch.serve.export import ServingDecoder, write_bundle
 from tests.test_m2_models import tiny_cfg
 from tests.test_torch_serve import _assert_same, _port_cfg, _waves
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # tests/test_m0_substrate.py::test_bpe_tokenizer's corpus
 SMALL_CORPUS = ["the cat sat on the mat", "the cat ran", "a cat and the mat",

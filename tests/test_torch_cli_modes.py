@@ -36,6 +36,7 @@ from metaasr_tpu_torch.weights import flax_to_params
 from tests.test_torch_eval import eval_cfg
 from tests.test_torch_meta import port_cfg
 from tests.test_torch_serve import _setup as jax_bundle
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ACCENTS = ("alpha", "bravo", "echo", "delta")
 

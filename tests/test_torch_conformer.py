@@ -23,6 +23,7 @@ from metaasr_tpu_torch.weights import (
     random_state_dict,
     state_dict_to_flax,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 VOCAB = 30
 KERNEL = 7

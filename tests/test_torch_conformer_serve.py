@@ -30,6 +30,7 @@ from metaasr_tpu_torch.weights import params_to_flax
 from tests.test_m2_models import tiny_cfg
 from tests.test_torch_meta import port_cfg
 from tests.test_torch_serve import _assert_same, _waves
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 BUCKETS = ((3, 8000),)
 

@@ -24,6 +24,7 @@ from metaasr_tpu.ops.ctc import ctc_loss as ref_ctc_loss
 from metaasr_tpu.ops.ctc_pallas import ctc_loss_pallas
 from metaasr_tpu_torch.models import losses
 from metaasr_tpu_torch.ops import ctc, ctc_kernel
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 B, T, U, V = 6, 24, 6, 9
 

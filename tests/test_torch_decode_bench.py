@@ -33,24 +33,13 @@ from metaasr_tpu.models.lm import LSTMLM as RefLM
 from metaasr_tpu.models.transformer import TransformerASR as RefModel
 from metaasr_tpu_torch.scripts import decode_bench as db
 from metaasr_tpu_torch.weights import flax_to_lm_state_dict, flax_to_state_dict
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = {"d_model": 32, "num_heads": 2, "d_ff": 64, "num_encoder_layers": 2,
         "num_decoder_layers": 2}
 TINY_LM = {"embed_dim": 8, "hidden": 16, "layers": 2}
 SCORE_TOL = 1e-3        # tests/test_torch_beam.py:49
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs: the search is ~10^5
-    small ops a decode, and with the suite's workers sharing the cores
-    torch's thread pool only waits on them (full-vocab scoring ran ~200x
-    slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def reference_ast(name: str) -> ast.Module:
@@ -227,7 +216,14 @@ def test_rows_from_injected_timings():
 def test_median_of_three(monkeypatch):
     clock = iter([0.0, 3.0, 10.0, 11.0, 20.0, 22.0])
     monkeypatch.setattr(db.time, "perf_counter", lambda: next(clock))
-    assert db.median3(lambda: None) == 2.0
+    assert db.median_of(lambda: None) == 2.0
+
+
+def test_median_of_one_pass(monkeypatch):
+    """``passes=1`` (the smoke's depth): the one pass's seconds."""
+    clock = iter([0.0, 3.0])
+    monkeypatch.setattr(db.time, "perf_counter", lambda: next(clock))
+    assert db.median_of(lambda: None, passes=1) == 3.0
 
 
 def test_same_readback_of_int64_tokens_and_neg_scores():

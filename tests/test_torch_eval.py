@@ -34,6 +34,7 @@ from metaasr_tpu_torch.train.checkpoint import (
 from metaasr_tpu_torch.weights import params_to_flax
 from tests.test_m2_models import tiny_cfg
 from tests.test_torch_meta import port_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ACCENTS = ("alpha", "bravo", "echo", "delta")
 SCORE_RTOL = 1e-4

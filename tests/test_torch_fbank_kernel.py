@@ -13,6 +13,7 @@ from metaasr_tpu.frontend.oracle import fbank_oracle
 from metaasr_tpu.frontend.pallas_fbank import pallas_log_mel_fbank
 from metaasr_tpu_torch.frontend import fbank, fbank_kernel, oracle
 from tests.test_torch_frontend import _audio
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # the parameter sets of test_fbank_params_equal_reference, at 40, 80 and
 # 128 mel bins (128: the reference Pallas path's limit, pallas_fbank.py:45)

@@ -16,6 +16,7 @@ from metaasr_tpu.frontend.oracle import cmvn_oracle, fbank_oracle
 from metaasr_tpu.frontend.pallas_fbank import pallas_log_mel_fbank
 from metaasr_tpu_torch.frontend import fbank
 from metaasr_tpu_torch.frontend.fbank_kernel import fused_log_mel
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LENS = [16000, 401, 400, 7003, 399]   # 401 -> 1 frame; 399 -> 0 frames

@@ -27,6 +27,7 @@ from metaasr_tpu_torch.weights import (
     flax_to_lm_state_dict,
     lm_state_dict_to_flax,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-5
 

@@ -33,6 +33,7 @@ from metaasr_tpu_torch.serve.export import (
 from metaasr_tpu_torch.weights import split_lm
 from tests.test_m2_models import tiny_cfg
 from tests.test_torch_serve import _port_cfg, _waves
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 BUCKET = (3, 8000)
 LM_WEIGHT = 0.5

@@ -33,6 +33,7 @@ from metaasr_tpu_torch.train.checkpoint import (
 from metaasr_tpu_torch.weights import params_to_flax
 from tests.test_torch_eval import _assert_same_dump, _records, eval_cfg
 from tests.test_torch_meta import port_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ACCENTS = ("alpha", "bravo", "echo", "delta")
 LM_WEIGHT = 0.5

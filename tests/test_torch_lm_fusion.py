@@ -21,6 +21,7 @@ from metaasr_tpu_torch.models import lm
 from tests.test_m4_beam import _host_ctc_prefix_scores
 from tests.test_torch_beam import EOS as T_EOS
 from tests.test_torch_beam import _assert_same_search, _models
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _ref_lm(vocab, embed=6, hidden=8, layers=2, seed=0):

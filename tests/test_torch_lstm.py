@@ -25,6 +25,7 @@ from metaasr_tpu_torch.ops.lstm_kernel import (
     plain_lstm_backward,
     plain_lstm_forward,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SHAPES = [(37, 5, 24), (20, 3, 32)]   # the reference's own case; H = 32
 

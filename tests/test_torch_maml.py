@@ -44,6 +44,7 @@ from tests.test_torch_meta import (
     _to_torch,
     port_cfg,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # ---------------- the linear CTC model ----------------
 

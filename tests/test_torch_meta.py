@@ -23,6 +23,7 @@ from metaasr_tpu_torch.meta import maml
 from metaasr_tpu_torch.task import ASRTask
 from metaasr_tpu_torch.weights import flatten_tree, flax_to_params, params_to_flax
 from tests.test_m2_models import tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 VOCAB = 30
 M_TASKS, K = 2, 2

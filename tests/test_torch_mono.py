@@ -39,6 +39,7 @@ from metaasr_tpu_torch.weights import (
     flax_to_state_dict,
     params_to_flax,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ACCENTS = ("alpha", "bravo", "echo")

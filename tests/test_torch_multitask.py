@@ -31,6 +31,7 @@ from metaasr_tpu_torch.train.meta_train import to_device
 from metaasr_tpu_torch.train.mono import MultitaskASRTrainer
 from metaasr_tpu_torch.train.optimizer import noam_schedule
 from metaasr_tpu_torch.weights import flatten_tree, params_to_flax
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG2 = os.path.join(REPO, "configs", "config2_multitask_transformer.yaml")

@@ -41,6 +41,7 @@ from metaasr_tpu_torch.weights import flax_to_params
 from tests.test_m2_models import tiny_cfg
 from tests.test_prepare_data import _fake_cv
 from tests.test_torch_meta import port_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FEAT_TOL = 1e-4          # rtol = atol, tests/test_prepare_data.py

@@ -30,7 +30,6 @@ import tempfile
 
 import numpy as np
 import pytest
-import torch
 
 from metaasr_tpu.config import Config as RefConfig
 from metaasr_tpu.config import load_config as ref_load_config
@@ -47,20 +46,10 @@ from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
 from metaasr_tpu_torch.train.mono import MultitaskASRTrainer
 from tests.test_torch_decode_bench import reference_ast, reference_constants
 from tests.test_torch_eval import corpora, trainers  # noqa: F401 (fixtures)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG3 = os.path.join(REPO, "configs", "config3_fomaml.yaml")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs: the beam search is many
-    small ops, and with the suite's workers sharing the cores torch's
-    thread pool only waits on them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------- the reference scripts, read by ast ----------------
@@ -155,7 +144,7 @@ def test_flagship_constants_and_kshot_tiny_block():
         got = kshot.run_config(label, "/data/x", 0, True, 30)
         assert _as_dict(got) == _as_dict(want), label
     cfg = flagship.make_cfg("fomaml", 1, "d")
-    kshot.apply_tiny(cfg)
+    flagship.apply_tiny(cfg)
     assert cfg.frontend.use_pallas is False and cfg.model.d_model == 32
 
 
@@ -253,7 +242,7 @@ def _train_tiny(corpus, label, wd, steps=2):
     cfg = flagship.make_cfg(algo, steps, corpus)
     cfg.model.vocab_size = tok.vocab_size
     cfg.meta.learn_inner_lr = "@metasgd" in label
-    kshot.apply_tiny(cfg)
+    flagship.apply_tiny(cfg)
     dsets = load_accent_datasets(corpus, tok)
     heldout = {flagship.HELDOUT: dsets.pop(flagship.HELDOUT)}
     task = ASRTask(cfg, tok.sos_eos_id, device="cpu")

@@ -25,6 +25,7 @@ from metaasr_tpu_torch.serve.export import (
     write_bundle,
 )
 from tests.test_m2_models import tiny_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUCKETS = ((2, 6000), (3, 8000))

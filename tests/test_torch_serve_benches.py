@@ -51,21 +51,10 @@ from metaasr_tpu_torch.serve.export import (
 from metaasr_tpu_torch.task import ASRTask
 from metaasr_tpu_torch.weights import flax_to_state_dict
 from tests.test_torch_decode_bench import reference_ast, reference_constants
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # runtime backends a bundle does not record (serve/export.py)
 UNRECORDED_MODEL_KEYS = ("ctc_impl", "lstm_impl")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread while this module runs: the search is ~10^5
-    small ops a decode, and with the suite's workers sharing the cores
-    torch's thread pool only waits on them (full-vocab scoring ran ~200x
-    slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_constants_match_the_reference():

@@ -43,6 +43,7 @@ from metaasr_tpu_torch.train.meta_train import MetaASRTrainer, to_device
 from metaasr_tpu_torch.train.mono import MonoASRTrainer
 from metaasr_tpu_torch.weights import flax_to_params, params_to_flax
 from tests.test_torch_transformer import VOCAB, flax_and_port
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 # ---------------- teacher-forced transformer ----------------

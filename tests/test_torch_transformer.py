@@ -19,6 +19,7 @@ from metaasr_tpu_torch.weights import (
     random_state_dict,
     state_dict_to_flax,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 VOCAB = 30
 DIMS = dict(d_model=32, num_heads=2, d_ff=64, num_encoder_layers=2,

@@ -28,6 +28,7 @@ from metaasr_tpu_torch.weights import (
     random_state_dict,
     state_dict_to_flax,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 VOCAB, HIDDEN, LAYERS, CHANNELS = 12, 32, 2, (8, 16)
 
