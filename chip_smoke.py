@@ -70,8 +70,9 @@ Phases, one JSON line each; any failure exits non-zero:
              through the autograd Function, at [T, B, H] = [99, 16, 320]
              (config1), [64, 8, 128], an unaligned [37, 5, 96], a long
              [400, 4, 320], the reference's H [20, 3, 24] (an uneven split),
-             [20, 4, 640] (U's slice partly streamed) and [3, 5, 5280] (the
-             widest H, almost all streamed): forward and saved gates max
+             [20, 4, 640] (U's slice partly streamed), [3, 5, 5280] (the
+             widest H, almost all streamed) and [65, 64, 192] (the fusion
+             LM of ``fusion_eval``, batch 64): forward and saved gates max
              |diff| <= 1e-5, dgx / dU l2rel <= 1e-3; each shape's cluster
              size, batch tile, shared memory per CTA and
              cudaOccupancyMaxActiveClusters. CUDA-event medians at the
@@ -294,6 +295,28 @@ Phases, one JSON line each; any failure exits non-zero:
              ``inner_lr`` leaves finite and at least one moved off its
              initial rate. Each call's and arm's seconds beside the
              phase's budget (150 s, printed, not gated).
+
+24. fusion_profiling — ``fusion_eval.main`` at config3 width in this
+             process as a user runs it (the multitask arm, 2 steps; the
+             recipe's 2 x 192 LM, 10 steps at batch 64; weights 0 and 0.3)
+             over a hard-profile corpus of 16 utterances an accent made
+             first, which it reuses: per call of ``train_char_lm``,
+             ``train``, ``meta_adapt`` and ``decode`` the exact launches
+             the code gives (the LM K3 and K3b 2 a step; the arm 1 K1 and 1
+             K2 a step; an adaptation 1 K1 and 5 K2; a decode batch 1 K1;
+             K2b 0; K3/K3b 0 in the fused search); the reference's JSON
+             layout, one printed line per weight, the ``--out`` file. The
+             paired design on seed 0's adapted parameters and test split:
+             the 0 column's hypotheses equal a decode with ``lm_ckpt``
+             unset, the 0.3 column's scores differ from the 0 column's.
+             Both of those decodes (one batch, weight 0.3 with and without
+             the LM) under torch.profiler, each Chrome trace read by
+             ``trace_summary.summarize``: the top rows, device-op ms and
+             ops per batch, their ratios; K1's row present with a count of
+             at least 1 and at most the wrapper's launches. Then
+             ``matmul_roofline.main``: each of its seven rows in (0, 1.05 x
+             989] TF/s. The phase's seconds beside its budget (100 s,
+             printed, not gated).
 
 Then a line of the held-out WERs of phases 13, 14 and 19 (random init: a
 trend), a ``phase_seconds`` line with their sum and phase 21's B 16
@@ -1223,7 +1246,8 @@ LSTM_SHAPES = {"config1": (99, 16, 320), "chip_check": (64, 8, 128),
                "unaligned": (37, 5, 96), "long_t": (400, 4, 320),
                "reference_h": (20, 3, 24),     # tests/test_m3_pallas.py's H
                "streamed": (20, 4, 640),       # U's slice exceeds a CTA
-               "widest": (3, 5, 5280)}         # 16 rounds of pairs, streamed
+               "widest": (3, 5, 5280),         # 16 rounds of pairs, streamed
+               "fusion_lm": (65, 64, 192)}     # fusion_eval's LM, batch 64
 LSTM_TILES = (4, 8, 16)  # the batch tiles swept at the config1 shape
 LSTM_DU_SPLITS = (1, 2, 4, 8)  # the dU product's k splits, swept there too
 LSTM_FWD_TOL = 1e-5      # max |diff| of h_seq
@@ -3473,16 +3497,18 @@ SMALL_WIDTH = {"model.d_model": 32, "model.num_heads": 2, "model.d_ff": 64,
 
 @contextlib.contextmanager
 def launches_per_call(cls, name, record: dict):
-    """Wrap ``cls.name`` so that each call appends its launch counts (the
-    counters' growth over the call) to ``record["Cls.name"]``."""
+    """Wrap ``cls.name`` (a class's method or a module's function) so that
+    each call appends its launch counts (the counters' growth over the
+    call) to ``record["Cls.name"]`` (a module by its last name part)."""
     own = cls.__dict__.get(name)
     fn = getattr(cls, name)
+    key = f"{cls.__name__.rsplit('.', 1)[-1]}.{name}"
 
-    def wrapped(self, *args, **kwargs):
+    def wrapped(*args, **kwargs):
         before = all_counts()
-        out = fn(self, *args, **kwargs)
+        out = fn(*args, **kwargs)
         after = all_counts()
-        record.setdefault(f"{cls.__name__}.{name}", []).append(
+        record.setdefault(key, []).append(
             {k: after[k] - before[k] for k in after})
         return out
 
@@ -4021,6 +4047,270 @@ def flagship_paths(flag, k) -> dict:
             for name, rec in flag["calls"].items()}
 
 
+# ------------------------------------------ fusion and profiling ----
+
+FUSION_STEPS = 2            # fusion_eval --steps (default 1500)
+FUSION_LM_STEPS = 10        # its --lm-steps (default 1500), the 2 x 192 LM
+FUSION_UTTS = 16            # the hard corpus made first (default 192)
+FUSION_WEIGHTS = "0,0.3"    # its --weights (default 0,0.1,0.2,0.3,0.5)
+FUSION_BUDGET_S = 100
+TRACE_TOP = 8               # rows of each decode batch's table printed
+ROOFLINE_CEILING = 1.05     # a row's TF/s against bench.PEAK_FLOPS
+
+
+def fusion_expected(fusion, argv, n_heldout: int) -> dict:
+    """The launches each call of one ``fusion_eval.main(argv)`` (``--algo
+    multi``) makes, from the code: the LM's training K3 and K3b 2 a step
+    (2 layers); the multitask arm 1 K1 and 1 K2 a step; each adaptation 1
+    K1 and 5 K2; each decode batch 1 K1, per weight a zero-shot decode
+    and one per support seed; K2b 0, and K3/K3b 0 in the fused search."""
+    args = fusion.build_parser().parse_args(argv)
+    assert args.algo == "multi" and not args.tiny
+    _, ev = fusion.arm_configs(args, "", 30)
+    bsz, n = ev.data.batch_size, args.steps
+    zs = decode_batches(n_heldout - 8 if n_heldout > 8 else n_heldout, bsz,
+                        64)
+    test = decode_batches(n_heldout - ev.meta.k_support, bsz, 64)
+    seeds = len(fusion.ADAPT_SEEDS)
+    lm_launches = 2 * args.lm_steps
+    return {
+        "lm.train_char_lm": [{**kernel_counts(), "k3": lm_launches,
+                              "k3b": lm_launches}],
+        "MultitaskASRTrainer.train": [kernel_counts(n, n)],
+        "MetaASRTrainer.meta_adapt": [kernel_counts(1, 5)] * seeds,
+        "MetaASRTrainer.decode": [kernel_counts(b) for b in (
+            [zs] + [test] * seeds) * len(args.weights.split(","))]}
+
+
+def _dump(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def traced_decode(torch, trace_summary, meta_tr, params, ds, idx, path):
+    """One beam decode of ``idx`` under torch.profiler (CUDA activity),
+    its Chrome trace summarized -> (summary of every row, K1 launches,
+    wall seconds, the hypotheses' dump)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from metaasr_tpu_torch.frontend.fbank_kernel import fused_log_mel
+
+    k1 = fused_log_mel.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        meta_tr.decode(params, ds, idx, max_utts=64, mode="beam",
+                       dump_path=path + ".jsonl")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    return (trace_summary.summarize(path, steps=1, top=None),
+            fused_log_mel.launches - k1, wall, _dump(path + ".jsonl"))
+
+
+def phase_fusion_profiling(torch, smi):
+    """fusion_eval.main at config3 width in this process (the multitask
+    arm, a few steps; the recipe's 2 x 192 LM, a few steps; weights 0 and
+    0.3) with exact launches per call; the paired design (the 0 column's
+    hypotheses = a decode with ``lm_ckpt`` unset, the 0.3 column's scores
+    not the 0 column's); trace_summary over one fused and one unfused
+    decode batch of the same adapted parameters (K1's row against the
+    wrapper's count); matmul_roofline's seven rows."""
+    import io
+
+    from metaasr_tpu_torch.data.dataset import Manifest
+    from metaasr_tpu_torch.models import lm
+    from metaasr_tpu_torch.scripts import (
+        fusion_eval,
+        matmul_roofline,
+        trace_summary,
+    )
+    from metaasr_tpu_torch.scripts.bench import PEAK_FLOPS
+    from metaasr_tpu_torch.scripts.flagship_results import ensure_corpus
+    from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
+    from metaasr_tpu_torch.train.mono import MultitaskASRTrainer
+
+    t_phase = time.perf_counter()
+    out = {"phase": "fusion_profiling", "card": smi, "steps": FUSION_STEPS,
+           "lm_steps": FUSION_LM_STEPS, "utts_per_accent": FUSION_UTTS,
+           "weights": FUSION_WEIGHTS}
+    with tempfile.TemporaryDirectory() as work:
+        data = os.path.join(work, "data")
+        ensure_corpus(data, "hard", FUSION_UTTS)
+        argv = ["--steps", str(FUSION_STEPS), "--lm-steps",
+                str(FUSION_LM_STEPS), "--weights", FUSION_WEIGHTS,
+                "--data-dir", data, "--workdir", os.path.join(work, "runs"),
+                "--out", os.path.join(work, "fusion.json")]
+        n = len(Manifest.load(os.path.join(
+            data, f"{fusion_eval.HELDOUT}.jsonl")).utts)
+        # every adaptation and decode of the sweep recorded (the decodes
+        # with a hypothesis dump, their weight and seconds)
+        adapted, decodes = [], []
+        adapt, decode = MetaASRTrainer.meta_adapt, MetaASRTrainer.decode
+
+        def recording_adapt(self, params, ds, **kwargs):
+            res = adapt(self, params, ds, **kwargs)
+            adapted.append((self, ds, res))
+            return res
+
+        def recording_decode(self, params, ds, idx, **kwargs):
+            path = os.path.join(work, f"dump_{len(decodes)}.jsonl")
+            t0 = time.perf_counter()
+            res = decode(self, params, ds, idx, dump_path=path, **kwargs)
+            decodes.append({"weight": self.cfg.train.lm_weight,
+                            "seconds": time.perf_counter() - t0,
+                            "idx": list(idx), "dump": _dump(path)})
+            return res
+
+        calls, buf = {}, io.StringIO()
+        t0 = time.perf_counter()
+        zero_counts()
+        with contextlib.ExitStack() as stack:
+            for name, fn in (("meta_adapt", recording_adapt),
+                             ("decode", recording_decode)):
+                stack.callback(setattr, MetaASRTrainer, name,
+                               getattr(MetaASRTrainer, name))
+                setattr(MetaASRTrainer, name, fn)
+            for cls, method in ((lm, "train_char_lm"),
+                                (MultitaskASRTrainer, "train"),
+                                (MetaASRTrainer, "meta_adapt"),
+                                (MetaASRTrainer, "decode")):
+                stack.enter_context(launches_per_call(cls, method, calls))
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            res = fusion_eval.main(argv)
+        total = all_counts()
+        want = fusion_expected(fusion_eval, argv, n)
+        want_total = {k: sum(c[k] for cs in want.values() for c in cs)
+                      for k in total}
+        printed = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                   if ln.startswith('{"')]
+        weights = [str(float(w)) for w in FUSION_WEIGHTS.split(",")]
+        with open(os.path.join(work, "fusion.json")) as f:
+            written = json.load(f)
+        wers = [e["zero_shot_beam_wer"] for e in res["weights"].values()]
+        wers += [w for e in res["weights"].values()
+                 for w in e["adapt5_beam_draws"]]
+        out["sweep"] = {
+            "seconds": round(time.perf_counter() - t0, 1),
+            "results": res, "launches": total,
+            "launches_expected": want_total, "launches_per_call": calls,
+            "launches_per_call_expected": want,
+            "decode_seconds_by_weight": {
+                w: round(sum(d["seconds"] for d in decodes
+                             if str(d["weight"]) == w), 2) for w in weights},
+            "layout_is_the_reference": (
+                list(res) == ["algo", "steps", "seed", "lm_nll", "weights"]
+                and list(res["weights"]) == weights and written == res
+                and printed == [{w: res["weights"][w]} for w in weights]
+                and all(math.isfinite(w) and w >= 0 for w in wers)
+                and math.isfinite(res["lm_nll"]))}
+        sweep_ok = (out["sweep"]["layout_is_the_reference"] and calls == want
+                    and total == want_total)
+
+        # the paired design and the traces: seed 0's adapted parameters on
+        # its test split, fused (weight 0.3) and with lm_ckpt unset
+        meta_tr, ds, (params0, idx0) = adapted[0]
+        by_weight = {w: next(d for d in decodes if str(d["weight"]) == w
+                             and d["idx"] == list(idx0)) for w in weights}
+        t = meta_tr.cfg.train
+        lm_ckpt = t.lm_ckpt
+        traces = {}
+        for tag, ckpt in (("fused", lm_ckpt), ("unfused", "")):
+            t.lm_ckpt, t.lm_weight = ckpt, float(weights[-1])
+            summary, k1, wall, dump = traced_decode(
+                torch, trace_summary, meta_tr, params0, ds, idx0,
+                os.path.join(work, f"{tag}_trace.json"))
+            # K1's row: "(anonymous namespace)::fbank_fft_kernel"
+            k1_rows = [r for r in summary["rows"]
+                       if "fbank_fft_kernel" in r["op"]]
+            traces[tag] = {
+                "utterances": len(idx0), "wall_s": round(wall, 3),
+                "device_ms_per_batch": summary["device_ms_per_step"],
+                "device_ops": sum(r["launches"] for r in summary["rows"]),
+                "op_rows": summary["ops"],
+                "top": [[r["op"][:100], round(r["ms_per_step"], 3),
+                         round(r["pct"], 1), r["count"]]
+                        for r in summary["rows"][:TRACE_TOP]],
+                "k1_wrapper_launches": k1,
+                "k1_trace_count": k1_rows[0]["count"] if k1_rows else 0,
+                "dump": dump}
+        t.lm_ckpt = lm_ckpt
+        fused, unfused = traces["fused"], traces["unfused"]
+        zero, top = by_weight[weights[0]]["dump"], by_weight[weights[-1]][
+            "dump"]
+        out["paired"] = {
+            "zero_column_equals_unset": (
+                [r["hyp"] for r in unfused["dump"]]
+                == [r["hyp"] for r in zero]),
+            "zero_column_score_max_diff": max(
+                abs(a["score"] - b["score"])
+                for a, b in zip(unfused["dump"], zero)),
+            "fused_scores_differ": any(a["score"] != b["score"]
+                                       for a, b in zip(top, zero)),
+            "fused_texts_differ": sum(a["hyp"] != b["hyp"]
+                                      for a, b in zip(top, zero)),
+            "traced_fused_equals_sweep": (
+                [r["hyp"] for r in fused["dump"]]
+                == [r["hyp"] for r in top])}
+        for tr in traces.values():
+            tr.pop("dump")
+        out["traces"] = {**traces, "ratio": {
+            "device_ms": fused["device_ms_per_batch"]
+            / unfused["device_ms_per_batch"],
+            "device_ops": fused["device_ops"] / unfused["device_ops"],
+            "wall": fused["wall_s"] / unfused["wall_s"],
+            "sweep_decode_seconds": (
+                out["sweep"]["decode_seconds_by_weight"][weights[-1]]
+                / out["sweep"]["decode_seconds_by_weight"][weights[0]])}}
+        traces_ok = all(1 <= tr["k1_trace_count"] <= tr["k1_wrapper_launches"]
+                        for tr in traces.values())
+        paired_ok = (out["paired"]["zero_column_equals_unset"]
+                     and out["paired"]["fused_scores_differ"])
+        torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = matmul_roofline.main([])
+    peak = PEAK_FLOPS / 1e12
+    out["roofline"] = {
+        "device": json.loads(buf.getvalue().splitlines()[0])["device"],
+        "peak_tflops": peak,
+        "columns": ["row", "tflops (graph)", "% peak", "ms", "eager tflops",
+                    "eager ms"],
+        "rows": [[r["name"], round(r["tflops"], 1), round(r["pct_peak"], 1),
+                  round(r["ms"], 3), round(r["eager_tflops"], 1),
+                  round(r["eager_ms"], 3)] for r in rows]}
+    roofline_ok = (len(rows) == len(matmul_roofline.ROWS) and all(
+        0 < r[k] <= ROOFLINE_CEILING * peak for r in rows
+        for k in ("tflops", "eager_tflops")))
+    out["seconds"] = round(time.perf_counter() - t_phase, 1)
+    out["budget_s"] = FUSION_BUDGET_S
+    out["ok"] = {"sweep": sweep_ok, "paired": paired_ok,
+                 "traces": traces_ok, "roofline": roofline_ok}
+    log(out)
+    if not sweep_ok:
+        raise SystemExit(
+            f"fusion_eval: layout, WERs or launch counts differ from what "
+            f"its code gives: {calls} against {want}")
+    if not paired_ok:
+        raise SystemExit(f"fusion_eval's paired design: {out['paired']}")
+    if not traces_ok:
+        raise SystemExit("trace_summary: K1's row is missing or counts "
+                         "more launches than its wrapper made")
+    if not roofline_ok:
+        raise SystemExit(f"matmul_roofline: a row outside (0, "
+                         f"{ROOFLINE_CEILING} x peak]: {out['roofline']}")
+    return out
+
+
+def fusion_paths(fusion, k) -> dict:
+    """Phase 24's launches of kernel ``k``: the LM's training apart from
+    the rest of the sweep."""
+    calls = fusion["sweep"]["launches_per_call"]
+    lm_part = sum(c[k] for c in calls["lm.train_char_lm"])
+    return {"fusion_lm_training": lm_part,
+            "fusion_sweep": fusion["sweep"]["launches"][k] - lm_part}
+
+
 def last_line(torch, kind) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4289,6 +4579,7 @@ def main() -> int:
     serving_benches = timed(phase_serving_benches, torch, smi)
     quality = timed(phase_quality_scripts, torch, smi)
     flag = timed(phase_flagship, torch, smi)
+    fusion = timed(phase_fusion_profiling, torch, smi)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],
@@ -4317,7 +4608,7 @@ def main() -> int:
                           for path, c in lm["launches"].items()
                           if c[k] or k in ("k3", "k3b")}
     lstm_paths = lambda k: {**mono_paths(k), **new_paths(k),  # noqa: E731
-                            **lm_paths(k)}
+                            **lm_paths(k), **fusion_paths(fusion, k)}
     prep_paths = {path: c["k1"] for path, c in prep["launches"].items()}
     # phase 19: the conformer's meta-steps and CLI modes
     conformer_paths = lambda k: {  # noqa: E731
@@ -4335,7 +4626,8 @@ def main() -> int:
                 **maml_paths("k1"), **new_paths("k1"), **prep_paths,
                 **lm_paths("k1"), **conformer_paths("k1"),
                 "bench": sum(m["launches"]["k1"] for m in bench["measures"]),
-                **quality_paths(quality, "k1"), **flagship_paths(flag, "k1")}
+                **quality_paths(quality, "k1"), **flagship_paths(flag, "k1"),
+                **fusion_paths(fusion, "k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
@@ -4343,7 +4635,8 @@ def main() -> int:
                 "prep_feats_train": prep["launches"]["prep_feats_train"]["k2"],
                 **lm_paths("k2"), **conformer_paths("k2"),
                 "bench": sum(m["launches"]["k2"] for m in bench["measures"]),
-                **quality_paths(quality, "k2"), **flagship_paths(flag, "k2")}
+                **quality_paths(quality, "k2"), **flagship_paths(flag, "k2"),
+                **fusion_paths(fusion, "k2")}
     k2b_paths = {**maml_paths("k2b"), **conformer_paths("k2b"),
                  **flagship_paths(flag, "k2b")}
     k2_task = k2["shapes"]["per_task"]
