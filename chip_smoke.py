@@ -318,6 +318,34 @@ Phases, one JSON line each; any failure exits non-zero:
              989] TF/s. The phase's seconds beside its budget (100 s,
              printed, not gated).
 
+25. resident_corpus — ``data.resident`` at config3 width and depth
+             (``config3_train()`` through ``cli.make_trainer``, bf16
+             meta-step, 4 x (4 + 4), 3 inner steps, caps 256,240 samples
+             and 128 tokens) on an 8-accent corpus of 400 utterances each
+             (2-4 words, ``tango`` held out: 2,800 training utterances),
+             with 16-frame buckets 160 / 176 / 192 under config3's 256 (its
+             own buckets put every draw of this corpus in one shape):
+             ``auto`` under the 4 GB budget places the store, whose tensors
+             hold exactly ``resident_store_bytes``' 2,871,344,000 bytes;
+             steps 0-2's gathered batches equal ``to_device(sampler.sample(
+             step))`` key for key (``torch.equal``, contiguous), in at
+             least two bucket shapes; a 3-step resident ``meta_train`` and
+             a 3-step ``resident: off`` one from the same seed each launch
+             exactly 24 K1 and 48 K2 (0 K2b), only the second opens a
+             streaming feed, and their logged ``meta_loss`` agree within
+             1e-4 relative; ``auto`` with ``resident_max_gb: 2`` builds no
+             store, and the feed ``meta_train`` takes opens the streaming
+             feed and gives the streaming batch. The two 3-step runs use
+             deterministic algorithms: by default two runs of one feed
+             part by up to 9.5e-4 at step 3. The corpus is written by a
+             spawned process that starts before phase 1. Printed, not gated: the
+             store's collate and copy seconds, ``memory_allocated`` with it
+             and after it is freed, each feed's logged utts/s over its
+             steady steps, the host-to-device copies (count, bytes) of
+             each feed's next batch from the profiler's trace, the phase's
+             seconds beside its budget (45 s). The phase frees its
+             trainers and the store.
+
 Then a line of the held-out WERs of phases 13, 14 and 19 (random init: a
 trend), a ``phase_seconds`` line with their sum and phase 21's B 16
 decode ms (the host's speed), a ``{"kernels": [...]}`` line (time,
@@ -4311,6 +4339,256 @@ def fusion_paths(fusion, k) -> dict:
             "fusion_sweep": fusion["sweep"]["launches"][k] - lm_part}
 
 
+# ------------------------------------------- the device-resident corpus ----
+
+RESIDENT_UTTS = 400         # utterances an accent: 7 training accents, 2,800
+RESIDENT_STEPS = 3
+# config3's default buckets put every draw of this corpus (0.5-1.9 s
+# utterances) in (41,200, 32); 16-frame buckets under 256 split the draws.
+# The caps, and so the store, stay config3's.
+RESIDENT_FRAME_BUCKETS = (160, 176, 192, 256, 512, 1024, 1600)
+RESIDENT_STORE_BYTES = 2_871_344_000   # 2,800 x (256,240 x 4 + 128 x 4 + 8)
+RESIDENT_SMALL_GB = 2.0     # an auto budget the store overruns
+RESIDENT_LOSS_RTOL = 1e-4
+RESIDENT_BUDGET_S = 45
+
+
+def h2d_records(torch, fn) -> dict:
+    """Run ``fn`` under torch.profiler -> its host-to-device copies (count
+    and bytes) from the exported Chrome trace: the raw records carry no
+    byte count. Keep ``fn`` short. Host and device activity are traced:
+    device-only windows of this process have lost every copy record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            copies = [e for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "gpu_memcpy"
+                      and "HtoD" in e.get("name", "")]
+    return {"memcpy_htod": len(copies),
+            "bytes": sum(e.get("args", {}).get("bytes", 0) for e in copies)}
+
+
+def start_resident_corpus():
+    """Phase 25's corpus, written by a spawned process while the phases
+    before it run (generating it takes 10-17 s of one core) -> (its
+    TemporaryDirectory, the process)."""
+    import multiprocessing
+
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+
+    tmp = tempfile.TemporaryDirectory()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=generate_dataset, args=(os.path.join(tmp.name, "data"),),
+        kwargs={"utts_per_accent": RESIDENT_UTTS, "words_per_utt": (2, 4),
+                "seed": 0}, daemon=True)
+    proc.start()
+    return tmp, proc
+
+
+def phase_resident_corpus(torch, smi, corpus=None):
+    """data.resident at config3 width: the 2,871,344,000-byte store built
+    through ``auto``, its batches against the streaming feed's, a resident
+    and a streaming ``meta_train`` from one seed, and ``auto`` over a 2 GB
+    budget streaming. ``corpus``: ``start_resident_corpus()``'s result,
+    else it starts here."""
+    import gc
+
+    from metaasr_tpu_torch.cli import make_trainer
+    from metaasr_tpu_torch.train import meta_train
+    from metaasr_tpu_torch.train.meta_train import MetaASRTrainer, to_device
+
+    t_phase = time.perf_counter()
+    m = config3_train()[0].meta
+    want_k1 = RESIDENT_STEPS * 2 * m.tasks_per_batch
+    want_k2 = RESIDENT_STEPS * m.tasks_per_batch * (m.inner_steps + 1)
+    out = {"phase": "resident_corpus", "card": smi,
+           "utts_per_accent": RESIDENT_UTTS,
+           "frame_buckets": RESIDENT_FRAME_BUCKETS}
+    tmp, proc = corpus or start_resident_corpus()
+    with tmp as d:
+        data = os.path.join(d, "data")
+        t0 = time.perf_counter()
+        proc.join()
+        out["corpus_wait_s"] = time.perf_counter() - t0
+        if proc.exitcode != 0:
+            raise SystemExit(f"corpus generation exited {proc.exitcode}")
+
+        def trainer(name, resident, max_gb=4.0):
+            cfg = config3_train()[0]
+            cfg.data.data_dir, cfg.data.heldout_accents = data, ("tango",)
+            cfg.data.frame_buckets = RESIDENT_FRAME_BUCKETS
+            cfg.data.resident, cfg.data.resident_max_gb = resident, max_gb
+            cfg.train.log_every, cfg.train.ckpt_every = 1, 10 ** 6
+            return make_trainer(cfg, os.path.join(d, name), DEVICE)[0]
+
+        def train(tr, name, steps):
+            """``meta_train`` from zeroed counts -> (state, its launches,
+            the streaming feeds it opened, its logged records)."""
+            feeds = {}
+            zero_counts()
+            with launches_per_call(MetaASRTrainer, "_batch_feed", feeds):
+                state = tr.meta_train(max_steps=steps)
+            torch.cuda.synchronize()
+            counts = all_counts()
+            with open(os.path.join(d, name, "logs", "scalars.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            return (state, counts,
+                    len(feeds.get("MetaASRTrainer._batch_feed", [])), recs)
+
+        # gate 1: auto under the 4 GB budget places the store
+        res = trainer("res", "auto")
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        host = {}
+        build = meta_train.build_resident_store
+
+        def timed_build(*a):
+            t = time.perf_counter()
+            r = build(*a)
+            host["s"] = time.perf_counter() - t
+            return r
+
+        meta_train.build_resident_store = timed_build
+        try:
+            t0 = time.perf_counter()
+            res._setup_resident()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        finally:
+            meta_train.build_resident_store = build
+        if res._store is None:
+            raise SystemExit("auto under the budget built no store")
+        reckoned = meta_train.resident_store_bytes(
+            res.accent_datasets, res._num_samples_cap(),
+            res.cfg.data.max_tokens)
+        placed = sum(v.numel() * v.element_size()
+                     for v in res._store.values())
+        out["store"] = {
+            "utterances": sum(len(x) for x in res.accent_datasets.values()),
+            "keys": {k: [list(v.shape), str(v.dtype).removeprefix("torch.")]
+                     for k, v in res._store.items()},
+            "bytes": placed, "reckoned_bytes": reckoned,
+            "build_s": build_s, "collate_s": host["s"],
+            "copy_s": build_s - host["s"],
+            "memory_allocated_before": mem_before,
+            "memory_allocated_with_store": torch.cuda.memory_allocated()}
+        log(out)
+        if not placed == reckoned == RESIDENT_STORE_BYTES:
+            raise SystemExit(f"store of {placed} bytes, reckoned {reckoned}, "
+                             f"expected {RESIDENT_STORE_BYTES}")
+
+        # gate 2: the gathered batch is the streaming feed's, key for key
+        shapes, batch_ok = {}, True
+        for step in range(RESIDENT_STEPS):
+            got = res._resident_batch(step)
+            want = to_device(res.sampler.sample(step), DEVICE)
+            shapes[step] = list(got["support"]["audio"].shape)
+            batch_ok &= all(
+                sorted(got[p]) == sorted(want[p]) and all(
+                    got[p][k].dtype == v.dtype and got[p][k].is_contiguous()
+                    and torch.equal(got[p][k], v)
+                    for k, v in want[p].items())
+                for p in ("support", "query"))
+        out["batches"] = {"support_shapes": shapes, "equal": batch_ok}
+        if not batch_ok:
+            raise SystemExit("a gathered batch differs from the streaming one")
+        if len({tuple(s) for s in shapes.values()}) < 2:
+            raise SystemExit(f"steps 0-2 share one bucket: {shapes}")
+
+        # gate 3: resident against streaming, one seed, exact launches.
+        # Deterministic algorithms: by default two runs of one feed part
+        # by up to 9.5e-4 relative at step 3 (PERF.md §6)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            s_res, c_res, f_res, r_res = train(res, "res", RESIDENT_STEPS)
+            off = trainer("off", "off")
+            s_off, c_off, f_off, r_off = train(off, "off", RESIDENT_STEPS)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        gaps = [abs(a["meta_loss"] - b["meta_loss"])
+                / max(abs(a["meta_loss"]), abs(b["meta_loss"]))
+                for a, b in zip(r_res, r_off)]
+        steady = lambda recs: statistics.mean(  # noqa: E731
+            r["utts_per_sec"] for r in recs[1:])
+        out["feeds"] = {
+            "resident": {"launches": c_res, "streaming_feeds": f_res,
+                         "meta_loss": [r["meta_loss"] for r in r_res],
+                         "steady_utts_per_sec": steady(r_res)},
+            "streaming": {"launches": c_off, "streaming_feeds": f_off,
+                          "meta_loss": [r["meta_loss"] for r in r_off],
+                          "steady_utts_per_sec": steady(r_off)},
+            "max_rel_loss_gap": max(gaps), "rtol": RESIDENT_LOSS_RTOL,
+            "deterministic_algorithms": True}
+
+        # printed: host-to-device copies of each feed's next batch (the
+        # step itself copies nothing to the device: PERF.md §6)
+        nxt = RESIDENT_STEPS
+        out["h2d_next_batch"] = {
+            "resident_feed": h2d_records(
+                torch, lambda: res._resident_batch(nxt)),
+            "streaming_feed": h2d_records(
+                torch, lambda: next(off._batch_feed(nxt, nxt + 1))),
+            "resident_index_bytes":
+                m.tasks_per_batch * (m.k_support + m.k_query) * 8,
+            "streaming_batch_bytes": sum(
+                v.nbytes for p in ("support", "query")
+                for k, v in res.sampler.sample(nxt)[p].items()
+                if k != "texts")}
+        torch.cuda.synchronize()
+        mem_with = torch.cuda.memory_allocated()
+        del res, off, s_res, s_off
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["store"]["memory_allocated_after_free"] = \
+            torch.cuda.memory_allocated()
+        out["store"]["memory_allocated_with_trainers"] = mem_with
+
+        # gate 4: auto over a 2 GB budget builds no store, and the feed
+        # meta_train takes is the streaming one
+        over = trainer("over", "auto", RESIDENT_SMALL_GB)
+        feeds = {}
+        with launches_per_call(MetaASRTrainer, "_batch_feed", feeds):
+            got = next(over._feed(0, 1))
+        want = to_device(over.sampler.sample(0), DEVICE)
+        f_over = len(feeds.get("MetaASRTrainer._batch_feed", []))
+        out["auto_2gb"] = {
+            "store": over._store is not None, "streaming_feeds": f_over,
+            "batch_equal": all(torch.equal(got[p][k], v)
+                               for p in ("support", "query")
+                               for k, v in want[p].items())}
+        del over, got, want
+    out["launches"] = {"resident": c_res, "streaming": c_off}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["budget_s"] = RESIDENT_BUDGET_S
+    log(out)
+    for name, c, feeds in (("resident", c_res, f_res),
+                           ("streaming", c_off, f_off)):
+        if (c["k1"], c["k2"], c["k2b"]) != (want_k1, want_k2, 0):
+            raise SystemExit(f"{name} feed: K1 {c['k1']} (want {want_k1}), "
+                             f"K2 {c['k2']} (want {want_k2}), K2b {c['k2b']}")
+        if feeds != (name == "streaming"):
+            raise SystemExit(f"{name} feed opened {feeds} streaming feeds")
+    if not max(gaps) <= RESIDENT_LOSS_RTOL:
+        raise SystemExit(f"meta_loss apart by {max(gaps)} relative")
+    if (out["auto_2gb"]["store"] or f_over != 1
+            or not out["auto_2gb"]["batch_equal"]):
+        raise SystemExit(f"auto over 2 GB: {out['auto_2gb']}")
+    return out
+
+
+def resident_paths(resident, k) -> dict:
+    """Phase 25's launches of kernel ``k``, by feed."""
+    return {f"resident_phase_{name}": c[k]
+            for name, c in resident["launches"].items()}
+
+
 def last_line(torch, kind) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4538,6 +4816,7 @@ def main() -> int:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
         return 2
     seconds = {}
+    corpus = None if args else start_resident_corpus()
 
     def timed(phase, *args):
         t0 = time.perf_counter()
@@ -4580,6 +4859,7 @@ def main() -> int:
     quality = timed(phase_quality_scripts, torch, smi)
     flag = timed(phase_flagship, torch, smi)
     fusion = timed(phase_fusion_profiling, torch, smi)
+    resident = timed(phase_resident_corpus, torch, smi, corpus)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],
@@ -4627,7 +4907,7 @@ def main() -> int:
                 **lm_paths("k1"), **conformer_paths("k1"),
                 "bench": sum(m["launches"]["k1"] for m in bench["measures"]),
                 **quality_paths(quality, "k1"), **flagship_paths(flag, "k1"),
-                **fusion_paths(fusion, "k1")}
+                **fusion_paths(fusion, "k1"), **resident_paths(resident, "k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
@@ -4636,7 +4916,7 @@ def main() -> int:
                 **lm_paths("k2"), **conformer_paths("k2"),
                 "bench": sum(m["launches"]["k2"] for m in bench["measures"]),
                 **quality_paths(quality, "k2"), **flagship_paths(flag, "k2"),
-                **fusion_paths(fusion, "k2")}
+                **fusion_paths(fusion, "k2"), **resident_paths(resident, "k2")}
     k2b_paths = {**maml_paths("k2b"), **conformer_paths("k2b"),
                  **flagship_paths(flag, "k2b")}
     k2_task = k2["shapes"]["per_task"]

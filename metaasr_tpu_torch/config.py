@@ -180,9 +180,13 @@ class DataConfig:
     # keep decoded waveforms in host RAM (meta-training re-draws utterances
     # every step; decode once). Disable for corpora larger than RAM.
     cache_audio: bool = True
-    # device-resident corpus for meta-training: the padded dataset is
-    # device_put once and steps transfer only index arrays (on-device
-    # gather). "auto" = resident when the packed corpus fits the budget.
+    # device-resident corpus for meta-training (MetaASRTrainer.meta_train):
+    # the corpus, collated once at the caps, is copied to the trainer's
+    # device, and each step copies only its index arrays and gathers its
+    # batch there. "auto" = resident when the packed corpus, reckoned by
+    # data/sampler.py::resident_store_bytes, is within resident_max_gb
+    # (10^9 bytes); "off" (or auto over the budget) streams collated
+    # batches from a producer thread. YAML's unquoted on / off count.
     resident: str = "auto"         # "auto" | "on" | "off"
     resident_max_gb: float = 4.0
 

@@ -1,7 +1,8 @@
 """Collation, the length-bucketed batcher and the meta-task sampler
 (counterpart of ``metaasr_tpu/data/sampler.py``: ``collate``,
 ``item_samples``, ``BucketBatcher``, ``TaskSampler``,
-``support_query_split``).
+``support_query_split``, ``build_resident_store``,
+``resident_store_bytes``).
 
 ``BucketBatcher`` groups utterances whose (audio bucket, token bucket)
 match, so every batch has one of a small set of shapes; its order is a pure
@@ -267,6 +268,31 @@ def support_query_split(ds, k_support: int, num_samples: int, num_tokens: int,
     support = collate([ds[int(i)] for i in idx[:k_support]], num_samples,
                       num_tokens)
     return support, [int(i) for i in idx[k_support:]]
+
+
+def build_resident_store(datasets: dict, num_samples: int, num_tokens: int):
+    """Every utterance of every accent collated once at the caps, for the
+    device-resident corpus (``data.resident``) -> (store: {key: [N, ...]
+    numpy array}, {accent: offset}). Accents are taken in sorted order;
+    accent a's utterance i is row offset[a] + i. The store holds the keys
+    ``collate`` gives: audio or feats with their lengths, tokens, token
+    lengths, and the speaker-CMVN vectors where the items carry them."""
+    offsets, items = {}, []
+    for a in sorted(datasets):
+        offsets[a] = len(items)
+        ds = datasets[a]
+        items.extend(ds[i] for i in range(len(ds)))
+    batch = collate(items, num_samples, num_tokens)
+    return {k: v for k, v in batch.items() if k != "texts"}, offsets
+
+
+def resident_store_bytes(datasets: dict, num_samples: int,
+                         num_tokens: int) -> int:
+    """The store's size as the ``auto`` budget reckons it: waveform,
+    tokens and two lengths per utterance (the same figure for a feature
+    corpus, so both packages decide alike)."""
+    n = sum(len(ds) for ds in datasets.values())
+    return n * (num_samples * 4 + num_tokens * 4 + 8)
 
 
 def _stack_batches(batches: list[dict]) -> dict:

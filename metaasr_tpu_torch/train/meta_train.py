@@ -27,11 +27,18 @@
 
 The train state is a dict {params, opt_state, step, seed, best_metric,
 stale_evals}; the best-metric tracking lives in the checkpointed state, so
-a resumed run never overwrites ``best`` with a worse model. Batches are
-drawn by a producer thread and moved to the device on the main thread. Not
-in this slice (ROADMAP.md): the device-resident corpus (``data.resident``)
-and the mesh paths. The baseline trainers with their dev evaluation are in
-``train/mono.py``.
+a resumed run never overwrites ``best`` with a worse model.
+
+Two feeds give ``meta_train`` its batches, the same batch for a step
+either way. The device-resident corpus (``data.resident``: ``on``, or
+``auto`` while ``resident_store_bytes`` is within ``resident_max_gb``)
+collates the training corpus once at the caps onto the trainer's device;
+each step then copies only its [M, ks + kq] utterance indices and gathers
+support and query there, each key cut to the step's bucket first. Otherwise
+(``off``, or ``auto`` over the budget) a producer thread reads and collates
+each step's utterances, and the main thread copies them to the device. Not
+in this slice (ROADMAP.md): the mesh paths. The baseline trainers with
+their dev evaluation are in ``train/mono.py``.
 """
 
 from __future__ import annotations
@@ -49,12 +56,15 @@ from metaasr_tpu_torch.config import Config
 from metaasr_tpu_torch.data.sampler import (
     DEFAULT_SAMPLE_BUCKETS,
     TaskSampler,
+    build_resident_store,
     collate,
     item_samples,
+    resident_store_bytes,
     support_query_split,
 )
 from metaasr_tpu_torch.decode.greedy import greedy_to_texts
 from metaasr_tpu_torch.device import resolve_device
+from metaasr_tpu_torch.frontend.fbank import num_frames
 from metaasr_tpu_torch.meta.maml import (
     MetaAlgoConfig,
     fold_in,
@@ -177,6 +187,8 @@ class MetaASRTrainer:
                                    preprocess_fn=task.preprocess)
         self._decode_model = None   # built at the first beam decode
         self._lm = None             # the fusion LM, loaded at first use
+        self._store = None          # the resident corpus, built by meta_train
+        self._resident_ready = False
 
     def _num_samples_cap(self) -> int:
         return self.cfg.data.max_frames * 160 + 240   # frames -> samples
@@ -233,6 +245,77 @@ class MetaASRTrainer:
         while (batch := q.get()) is not None:
             yield to_device(batch, self.device)
 
+    # ---------- the device-resident corpus (data.resident) ----------
+
+    def _setup_resident(self) -> None:
+        """Place the training corpus on the device once, as ``data.resident``
+        says: ``off`` never, ``on`` always, ``auto`` when its reckoned size
+        is within ``resident_max_gb``. Lazy, so adapt- and test-only
+        sessions read no corpus; a store that cannot be built or placed
+        raises."""
+        if self._resident_ready:
+            return
+        self._resident_ready = True
+        d = self.cfg.data
+        # YAML reads an unquoted on / off as a boolean
+        mode = ({True: "on", False: "off"}[d.resident]
+                if isinstance(d.resident, bool) else d.resident)
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(
+                f"data.resident must be auto|on|off, got {d.resident!r}")
+        cap = self._num_samples_cap()
+        if mode == "off" or (
+                mode == "auto"
+                and resident_store_bytes(self.accent_datasets, cap,
+                                         d.max_tokens)
+                > d.resident_max_gb * 1e9):
+            return
+        store, self._offsets = build_resident_store(
+            self.accent_datasets, cap, d.max_tokens)
+        self._store = {k: torch.from_numpy(v).to(self.device)
+                       for k, v in store.items()}
+
+    def _resident_indices(self, step: int):
+        """(support rows [M, ks], query rows [M, kq] of the store, both
+        int32, and the step's (num_samples, num_tokens) bucket)."""
+        accents, sup, qry = self.sampler.sample_indices(step)
+        shape = self.sampler.step_shape(accents, sup, qry)
+        off = np.asarray([self._offsets[a] for a in accents],
+                         dtype=np.int32)[:, None]
+        return sup + off, qry + off, shape
+
+    def _resident_batch(self, step: int) -> dict:
+        """The meta-batch of ``step`` gathered from the store: equal, key for
+        key, to the streaming feed's ``to_device(sampler.sample(step))``.
+        Waveforms (or feature frames) and tokens are cut to the step's
+        bucket before the gather, and the gather writes new contiguous
+        tensors, so the step sees a streaming batch's layout. On CUDA the
+        indices go through pinned memory without a stream sync."""
+        sup, qry, (n_samples, n_tokens) = self._resident_indices(step)
+        idx = torch.from_numpy(np.concatenate([sup, qry], 1).astype(np.int64))
+        if self.device.type == "cuda":
+            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        width = {"audio": n_samples, "feats": max(1, num_frames(n_samples)),
+                 "tokens": n_tokens}
+        ks = sup.shape[1]
+        parts = {"support": idx[:, :ks], "query": idx[:, ks:]}
+        out = {p: {} for p in parts}
+        for k, v in self._store.items():
+            if k in width:
+                v = v[:, : width[k]]
+            for p, rows in parts.items():
+                out[p][k] = v[rows]
+        return out
+
+    def _feed(self, start_step: int, max_steps: int):
+        """Device batches for steps [start_step, max_steps): gathered from
+        the resident store where ``data.resident`` places one, else
+        streamed by ``_batch_feed``."""
+        self._setup_resident()
+        if self._store is not None:
+            return map(self._resident_batch, range(start_step, max_steps))
+        return self._batch_feed(start_step, max_steps)
+
     def meta_train(self, max_steps: int | None = None) -> dict:
         if self.sampler is None:
             raise ValueError(
@@ -246,9 +329,10 @@ class MetaASRTrainer:
         m = self.cfg.meta
         per_step = m.tasks_per_batch * (m.k_support * m.inner_steps
                                         + m.k_query)
-        t0, utts = time.time(), 0
         step = state["step"]
-        for batch in self._batch_feed(step, max_steps):
+        feed = self._feed(step, max_steps)
+        t0, utts = time.time(), 0
+        for batch in feed:
             state, metrics = self.step(state, batch)
             utts += per_step
             step += 1

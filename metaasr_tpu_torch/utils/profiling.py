@@ -10,13 +10,18 @@
   forward op that recorded it. It does not check the forward pass, which
   the reference's ``jax_debug_nans`` also does; PyTorch has no switch
   nearer to it.
+- ``Timer``: wall-clock seconds of each ``with`` block, their median and
+  items per second at the median; ``block(x)`` waits for the device work
+  that makes ``x``, so the block's time covers it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import time
 
+import numpy as np
 import torch
 
 
@@ -35,3 +40,38 @@ def trace(log_dir: str):
 
 def nan_check(enable: bool = True) -> None:
     torch.autograd.set_detect_anomaly(enable)
+
+
+class Timer:
+    """Median step timer: time each step as ``with timer:`` and end the
+    step's body with ``timer.block(out)``."""
+
+    def __init__(self):
+        self.times: list[float] = []
+        self._t0 = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.times.append(time.perf_counter() - self._t0)
+
+    def block(self, x):
+        """Synchronize the CUDA device of each tensor in ``x`` (a tensor,
+        or a dict, list or tuple of them); nothing on the CPU."""
+        leaves = (x.values() if isinstance(x, dict)
+                  else x if isinstance(x, (list, tuple)) else (x,))
+        for t in leaves:
+            if isinstance(t, (dict, list, tuple)):
+                self.block(t)
+            elif isinstance(t, torch.Tensor) and t.is_cuda:
+                torch.cuda.synchronize(t.device)
+        return x
+
+    @property
+    def median(self) -> float:
+        return float(np.median(self.times)) if self.times else float("nan")
+
+    def throughput(self, items_per_step: int) -> float:
+        return items_per_step / self.median if self.times else float("nan")
