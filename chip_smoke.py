@@ -345,12 +345,32 @@ Phases, one JSON line each; any failure exits non-zero:
              each feed's next batch from the profiler's trace, the phase's
              seconds beside its budget (45 s). The phase frees its
              trainers and the store.
+26. grain_loader — ``data.loader: grain`` at config1 width through
+             ``make_trainer`` (2 workers, a checkpoint every 2 steps, 2
+             kept, no evaluation) on 2 synthetic accents x 64 utterances:
+             the first 6 batches of the 2-worker stream equal the 0-worker
+             stream key for key, every batch [16, 256,240] samples and
+             [16, 128] tokens; at the cap shapes, under strict fp32, K1 at
+             [16, 256,240] (8 rows of 1,600 frames, 8 ragged; 80 bins) at
+             phase 2's bars, K2 at [B, T, S] = [16, 400, 257] (the
+             streamed layout) at phase 5's and K3/K3b at [400, 16, 320] at
+             phase 8's, each timed beside its plain version and bound; a
+             straight 4-step run and a 2 + 2 run resumed by a fresh trainer
+             from its checkpoint and ``grain_state_2.bin`` give equal
+             parameters (``torch.equal``, deterministic algorithms), the
+             state files ``grain_state_{2,4}.bin`` exist, and each run
+             launches exactly 1 K1, 1 K2, 8 K3 and 8 K3b a step. Printed,
+             not gated: ms a step and utts/s at the caps beside phase 9's
+             at 64,000 samples, the seconds each ``next`` of the stream
+             blocks with 0 and 2 workers, peak memory, the phase's seconds
+             beside its budget (25 s).
 
 Then a line of the held-out WERs of phases 13, 14 and 19 (random init: a
-trend), a ``phase_seconds`` line with their sum and phase 21's B 16
-decode ms (the host's speed), a ``{"kernels": [...]}`` line (time,
-bound, launches on the main
-paths per kernel; K3/K3b also at the LM's shape) and the last line
+trend), a ``phase_seconds`` line with their sum, phase 21's B 16 decode
+ms (the host's speed) and the target for such a host (950 s under a 3 s
+decode, else 1,120 s; not gated), a ``{"kernels": [...]}`` line (time,
+bound, launches on the main paths per kernel; K3/K3b also at the LM's
+shape, all four also at the grain loader's caps) and the last line
 ``{"ok": true, "device": {...}}``.
 
 Precision: the phases that time entry points run under the port's own
@@ -640,6 +660,66 @@ def cufft_path(torch, audio, flens, params):
     return torch.where(mask, feats, 0.0)
 
 
+def k1_check(torch, audio_np, audio, flens, lens, n_mel) -> tuple:
+    """K1 against its plain version and the float64 oracle on one batch at
+    ``n_mel`` bins -> (the check's readings, whether it meets phase 2's
+    bars)."""
+    from metaasr_tpu_torch.frontend import fbank_kernel
+    from metaasr_tpu_torch.frontend.fbank import FbankParams, log_mel_fbank
+    from metaasr_tpu_torch.frontend.oracle import fbank_oracle
+
+    want_lens = [max(0, 1 + (n - 400) // 160) for n in lens]
+    params = FbankParams.create(num_mel_bins=n_mel)
+    mats = fbank_kernel._device_matrices(params, audio.device)
+    got, got_lens = log_mel_fbank(audio, flens.new_tensor(lens), params,
+                                  "none")
+    plain = fbank_kernel.plain_log_mel(audio, flens, *mats)
+    torch.cuda.synchronize()
+    diff = (got - plain).abs()
+    ratio = float((diff / (K1_TOL + K1_TOL * plain.abs())).max())
+    # the fp32 FFT composite too: what fp32 costs at this bar
+    others = {"plain": plain.cpu().numpy(),
+              "cufft_path": cufft_path(torch, audio, flens,
+                                       params).cpu().numpy()}
+    k1_np = got.cpu().numpy()
+    oracle_err = well_err = 0.0
+    well_bins = 0
+    other_err = dict.fromkeys(others, 0.0)
+    padding_zero = True
+    for i, n in enumerate(lens):
+        ref = fbank_oracle(audio_np[i, :n], num_mel_bins=n_mel)
+        f = len(ref)
+        if f:
+            oracle_err = max(oracle_err,
+                             float(np.abs(k1_np[i, :f] - ref).max()))
+            for k, v in others.items():
+                other_err[k] = max(other_err[k], float(
+                    np.abs(v[i, :f] - ref).max()))
+            # the bins where the plain version itself is within K1_TOL of
+            # the oracle: there K1 must be within K1_TOL of it
+            well = np.abs(others["plain"][i, :f] - ref) <= K1_TOL
+            well_bins += int(well.sum())
+            if well.any():
+                well_err = max(well_err, float(np.abs(
+                    k1_np[i, :f] - others["plain"][i, :f])[well].max()))
+        padding_zero = padding_zero and not k1_np[i, f:].any()
+    check = {"max_abs_err": float(diff.max()), "tol_ratio": ratio,
+             "max_abs_err_where_plain_within_tol": well_err,
+             "bins_where_plain_within_tol": well_bins,
+             "bins": sum(k1_np.shape[2] * int(1 + (n - 400) // 160)
+                         for n in lens if n >= 400),
+             "oracle_max_abs_err": oracle_err,
+             "plain_oracle_max_abs_err": other_err["plain"],
+             "cufft_path_oracle_max_abs_err": other_err["cufft_path"],
+             "frame_lens_exact": got_lens.tolist() == want_lens,
+             "padding_zero": padding_zero,
+             "finite": bool(torch.isfinite(got).all())}
+    ok = (well_err <= K1_TOL and ratio <= 1.0
+          and oracle_err <= K1_ORACLE_TOL and check["frame_lens_exact"]
+          and padding_zero and check["finite"])
+    return check, ok
+
+
 def phase_kernel(torch, peaks):
     from metaasr_tpu_torch.frontend import fbank_kernel
     from metaasr_tpu_torch.frontend.fbank import (
@@ -647,7 +727,6 @@ def phase_kernel(torch, peaks):
         apply_cmvn,
         log_mel_fbank,
     )
-    from metaasr_tpu_torch.frontend.oracle import fbank_oracle
 
     part = card_peaks(torch.cuda.get_device_name(0))[0]
     res = {"phase": "kernel", "kernel": "fbank_log_mel",
@@ -658,59 +737,10 @@ def phase_kernel(torch, peaks):
     ok = True
     for name in K1_SHAPES:
         audio_np, audio, flens, lens = k1_inputs(torch, name)
-        want_lens = [max(0, 1 + (n - 400) // 160) for n in lens]
         for n_mel in K1_MELS:
-            params = FbankParams.create(num_mel_bins=n_mel)
-            mats = fbank_kernel._device_matrices(params, audio.device)
-            got, got_lens = log_mel_fbank(audio, flens.new_tensor(lens),
-                                          params, "none")
-            plain = fbank_kernel.plain_log_mel(audio, flens, *mats)
-            torch.cuda.synchronize()
-            diff = (got - plain).abs()
-            ratio = float((diff / (K1_TOL + K1_TOL * plain.abs())).max())
-            # the fp32 FFT composite too: what fp32 costs at this bar
-            others = {"plain": plain.cpu().numpy(),
-                      "cufft_path": cufft_path(torch, audio, flens,
-                                               params).cpu().numpy()}
-            k1_np = got.cpu().numpy()
-            oracle_err = well_err = 0.0
-            well_bins = 0
-            other_err = dict.fromkeys(others, 0.0)
-            padding_zero = True
-            for i, n in enumerate(lens):
-                ref = fbank_oracle(audio_np[i, :n], num_mel_bins=n_mel)
-                f = len(ref)
-                if f:
-                    oracle_err = max(oracle_err,
-                                     float(np.abs(k1_np[i, :f] - ref).max()))
-                    for k, v in others.items():
-                        other_err[k] = max(other_err[k], float(
-                            np.abs(v[i, :f] - ref).max()))
-                    # the bins where the plain version itself is within
-                    # K1_TOL of the oracle: there K1 must be within K1_TOL
-                    # of it
-                    well = np.abs(others["plain"][i, :f] - ref) <= K1_TOL
-                    well_bins += int(well.sum())
-                    if well.any():
-                        well_err = max(well_err, float(np.abs(
-                            k1_np[i, :f] - others["plain"][i, :f])[well].max()))
-                padding_zero = padding_zero and not k1_np[i, f:].any()
-            check = {"max_abs_err": float(diff.max()), "tol_ratio": ratio,
-                     "max_abs_err_where_plain_within_tol": well_err,
-                     "bins_where_plain_within_tol": well_bins,
-                     "bins": sum(k1_np.shape[2] * int(1 + (n - 400) // 160)
-                                 for n in lens if n >= 400),
-                     "oracle_max_abs_err": oracle_err,
-                     "plain_oracle_max_abs_err": other_err["plain"],
-                     "cufft_path_oracle_max_abs_err": other_err["cufft_path"],
-                     "frame_lens_exact": got_lens.tolist() == want_lens,
-                     "padding_zero": padding_zero,
-                     "finite": bool(torch.isfinite(got).all())}
+            check, good = k1_check(torch, audio_np, audio, flens, lens, n_mel)
             res["checks"][f"{name}/{n_mel}"] = check
-            ok = (ok and well_err <= K1_TOL and ratio <= 1.0
-                  and oracle_err <= K1_ORACLE_TOL
-                  and check["frame_lens_exact"] and padding_zero
-                  and check["finite"])
+            ok = ok and good
     # CMVN after K1 at the serving bucket, against CMVN after the plain one
     params = FbankParams.create()
     mats = fbank_kernel._device_matrices(params, audio.device)
@@ -1000,73 +1030,94 @@ def chain_times(torch, event_ms, t_lens, fn) -> dict:
             "us_per_dependent_step": 1e3 * device_ms / steps}
 
 
-def phase_ctc_kernel(torch, peaks):
-    import torch.nn.functional as F
-
+def ctc_check(torch, shape, seed) -> tuple:
+    """K2 against its plain version on ``ctc_inputs(shape, seed)`` -> (the
+    readings, whether they meet phase 5's bars, the kernel's inputs)."""
     from metaasr_tpu_torch.ops import ctc as ctc_ops
     from metaasr_tpu_torch.ops import ctc_kernel
 
+    lp, t_lens, labels, u_lens = ctc_inputs(torch, shape, seed)
+    z = ctc_ops.extend_labels(labels)
+    logp_z = ctc_ops.gather_emissions(lp, z).contiguous()
+    skip = ctc_ops.skip_bias(z).contiguous()
+    end = (2 * u_lens).contiguous()
+    nll, grad = ctc_kernel.ctc_alpha_beta(logp_z, skip, t_lens, end)
+    p_nll, p_grad = ctc_kernel.plain_ctc_alpha_beta(logp_z, skip, t_lens, end)
+    torch.cuda.synchronize()
+    loss_abs = float((nll - p_nll).abs().max())
+    loss_ok = bool(((nll - p_nll).abs()
+                    <= CTC_LOSS_TOL * (1 + p_nll.abs())).all())
+    l2rel = float(torch.linalg.norm(grad - p_grad) / torch.linalg.norm(p_grad))
+    # the loss with autograd: the infeasible row is zeroed, gradient too
+    x = lp.detach().clone().requires_grad_(True)
+    loss = ctc_kernel.ctc_loss_kernel(x, t_lens, labels, u_lens)
+    loss.sum().backward()
+    infeasible_zero = (float(loss.detach()[-1]) == 0.0
+                       and float(x.grad[-1].abs().max()) == 0.0)
+    finite = bool(torch.isfinite(loss).all() and torch.isfinite(x.grad).all())
+    entry = {"shape_btuv": list(shape), "loss_max_abs_diff": loss_abs,
+             "loss_ok": loss_ok, "grad_l2rel": l2rel,
+             "grad_max_abs_diff": float((grad - p_grad).abs().max()),
+             "bit_equal": bool(torch.equal(nll, p_nll)
+                               and torch.equal(grad, p_grad)),
+             "infeasible_row_zero": infeasible_zero, "finite": finite,
+             "plan": ctc_kernel.launch_plan(logp_z)}
+    ok = loss_ok and l2rel <= CTC_GRAD_L2REL and infeasible_zero and finite
+    return entry, ok, (lp, t_lens, labels, u_lens, logp_z, skip, end)
+
+
+def ctc_kernel_times(torch, shape, inputs, peaks, runs=30, plain_runs=10,
+                     device_times=True) -> dict:
+    """CUDA-event medians of K2, its plain version and F.ctc_loss forward +
+    backward on ``ctc_check``'s inputs, K2's bound and, with
+    ``device_times``, its device and host time from the profiler (late in
+    the whole run the profiler has recorded no kernel at all)."""
+    import torch.nn.functional as F
+
+    from metaasr_tpu_torch.ops import ctc_kernel
+
+    lp, t_lens, labels, u_lens, logp_z, skip, end = inputs
     peak_flops, peak_bw = peaks
+    bsz, t_len, _, _ = shape
+    s_len = logp_z.shape[2]
+    out = {"ms": cuda_median_ms(torch, lambda: ctc_kernel.ctc_alpha_beta(
+        logp_z, skip, t_lens, end), runs=runs)}
+    out["plain_ms"] = cuda_median_ms(
+        torch, lambda: ctc_kernel.plain_ctc_alpha_beta(
+            logp_z, skip, t_lens, end), runs=plain_runs, warmup=2)
+    lp_tbv = lp.transpose(0, 1).contiguous()
+
+    def library():
+        y = lp_tbv.detach().requires_grad_(True)
+        F.ctc_loss(y, labels, t_lens, u_lens, blank=0,
+                   reduction="none", zero_infinity=True).sum().backward()
+
+    out["library_ms"] = cuda_median_ms(torch, library, runs=runs)
+    elems = bsz * t_len * s_len
+    ops = 16 * elems           # 10 flops + 6 transcendentals
+    nbytes = 4 * (2 * elems + bsz * s_len + 3 * bsz)
+    t_ops, t_bytes = ops / peak_flops, nbytes / peak_bw
+    out.update(bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    if device_times:
+        out.update(chain_times(torch, out["ms"], t_lens, lambda: (
+            ctc_kernel.ctc_alpha_beta(logp_z, skip, t_lens, end))))
+    else:
+        out["dependent_steps"] = int(t_lens.max())
+        out["event_us_per_dependent_step"] = \
+            1e3 * out["ms"] / out["dependent_steps"]
+    return out
+
+
+def phase_ctc_kernel(torch, peaks):
     res = {"phase": "ctc_kernel", "loss_tol": "atol=rtol=1e-5",
            "grad_l2rel_tol": CTC_GRAD_L2REL, "shapes": {}}
     ok = True
     for i, (name, shape) in enumerate(CTC_SHAPES.items()):
-        lp, t_lens, labels, u_lens = ctc_inputs(torch, shape, seed=10 + i)
-        z = ctc_ops.extend_labels(labels)
-        logp_z = ctc_ops.gather_emissions(lp, z).contiguous()
-        skip = ctc_ops.skip_bias(z).contiguous()
-        end = (2 * u_lens).contiguous()
-        nll, grad = ctc_kernel.ctc_alpha_beta(logp_z, skip, t_lens, end)
-        p_nll, p_grad = ctc_kernel.plain_ctc_alpha_beta(logp_z, skip, t_lens,
-                                                        end)
-        torch.cuda.synchronize()
-        loss_abs = float((nll - p_nll).abs().max())
-        loss_ok = bool(((nll - p_nll).abs()
-                        <= CTC_LOSS_TOL * (1 + p_nll.abs())).all())
-        l2rel = float(torch.linalg.norm(grad - p_grad)
-                      / torch.linalg.norm(p_grad))
-        # the loss with autograd: the infeasible row is zeroed, gradient too
-        x = lp.detach().clone().requires_grad_(True)
-        loss = ctc_kernel.ctc_loss_kernel(x, t_lens, labels, u_lens)
-        loss.sum().backward()
-        infeasible_zero = (float(loss.detach()[-1]) == 0.0
-                           and float(x.grad[-1].abs().max()) == 0.0)
-        finite = bool(torch.isfinite(loss).all()
-                      and torch.isfinite(x.grad).all())
-        entry = {"shape_btuv": list(shape), "loss_max_abs_diff": loss_abs,
-                 "loss_ok": loss_ok, "grad_l2rel": l2rel,
-                 "grad_max_abs_diff": float((grad - p_grad).abs().max()),
-                 "bit_equal": bool(torch.equal(nll, p_nll)
-                                   and torch.equal(grad, p_grad)),
-                 "infeasible_row_zero": infeasible_zero, "finite": finite,
-                 "plan": ctc_kernel.launch_plan(logp_z)}
-        ok = ok and loss_ok and l2rel <= CTC_GRAD_L2REL and infeasible_zero \
-            and finite
+        entry, good, inputs = ctc_check(torch, shape, seed=10 + i)
+        ok = ok and good
         if name in ("per_task", "fused"):
-            bsz, t_len, _, vocab = shape
-            s_len = z.shape[1]
-            entry["ms"] = cuda_median_ms(torch, lambda: ctc_kernel.ctc_alpha_beta(
-                logp_z, skip, t_lens, end))
-            entry["plain_ms"] = cuda_median_ms(
-                torch, lambda: ctc_kernel.plain_ctc_alpha_beta(
-                    logp_z, skip, t_lens, end), runs=10, warmup=2)
-            lp_tbv = lp.transpose(0, 1).contiguous()
-
-            def library():
-                y = lp_tbv.detach().requires_grad_(True)
-                F.ctc_loss(y, labels, t_lens, u_lens, blank=0,
-                           reduction="none", zero_infinity=True).sum().backward()
-
-            entry["library_ms"] = cuda_median_ms(torch, library)
-            elems = bsz * t_len * s_len
-            ops = 16 * elems           # 10 flops + 6 transcendentals
-            nbytes = 4 * (2 * elems + bsz * s_len + 3 * bsz)
-            t_ops, t_bytes = ops / peak_flops, nbytes / peak_bw
-            entry.update(
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                **chain_times(torch, entry["ms"], t_lens, lambda: (
-                    ctc_kernel.ctc_alpha_beta(logp_z, skip, t_lens, end))))
+            entry.update(ctc_kernel_times(torch, shape, inputs, peaks))
         res["shapes"][name] = entry
     log(res)
     if not ok:
@@ -1387,6 +1438,74 @@ def lstm_yardstick(torch, d_in, u, dout, seed) -> dict:
     return out
 
 
+def lstm_check(torch, shape, seed) -> tuple:
+    """K3 and K3b against their plain versions on ``lstm_inputs(shape,
+    seed)``, the backward through the autograd Function -> (the readings,
+    whether they meet phase 8's bars, the tensors ``lstm_times`` takes)."""
+    from metaasr_tpu_torch.ops import lstm_kernel as lk
+
+    _, bsz, hidden = shape
+    gx, u, dout = lstm_inputs(torch, shape, seed)
+    gx_g = gx.clone().requires_grad_(True)
+    u_g = u.clone().requires_grad_(True)
+    before = (lk.lstm_recurrence.launches, lk.lstm_recurrence.bwd_launches)
+    h = lk.lstm_recurrence(gx_g, u_g)          # the autograd Function
+    (h * dout).sum().backward()
+    torch.cuda.synchronize()
+    counted = (lk.lstm_recurrence.launches - before[0],
+               lk.lstm_recurrence.bwd_launches - before[1])
+    h_seq, c_seq, gates = lk.lstm_forward(gx, u)
+    p_h, p_c, p_g = lk.plain_lstm_forward(gx, u)
+    p_dgx, p_du = lk.plain_lstm_backward(p_g, u, p_h, p_c, dout)
+    entry = {"shape_tbh": list(shape),
+             "plan": lk.plan(bsz, hidden, gx.device),
+             "fwd_max_abs_diff": float((h.detach() - p_h).abs().max()),
+             "gates_max_abs_diff": float((gates - p_g).abs().max()),
+             "c_max_abs_diff": float((c_seq - p_c).abs().max()),
+             "dgx_l2rel": l2rel(torch, gx_g.grad, p_dgx),
+             "du_l2rel": l2rel(torch, u_g.grad, p_du),
+             "dgx_max_abs_diff": float((gx_g.grad - p_dgx).abs().max()),
+             "du_max_abs_diff": float((u_g.grad - p_du).abs().max()),
+             "launches_counted": list(counted)}
+    ok = (entry["fwd_max_abs_diff"] <= LSTM_FWD_TOL
+          and entry["gates_max_abs_diff"] <= LSTM_FWD_TOL
+          and entry["dgx_l2rel"] <= LSTM_GRAD_L2REL
+          and entry["du_l2rel"] <= LSTM_GRAD_L2REL and counted == (1, 1))
+    return entry, ok, (gx, u, dout, h_seq, c_seq, gates, p_h, p_c, p_g)
+
+
+def lstm_times(torch, shape, tensors, peaks, runs=30, plain_runs=10) -> dict:
+    """CUDA-event medians of K3 (with and without the gates), K3b (whole,
+    its recurrence and its dU product) and their plain versions on
+    ``lstm_check``'s tensors, with the bounds and µs per dependent step."""
+    from metaasr_tpu_torch.ops import lstm_kernel as lk
+
+    t_len, bsz, hidden = shape
+    gx, u, dout, h_seq, c_seq, gates, p_h, p_c, p_g = tensors
+    p = lk.plan(bsz, hidden, gx.device)
+    dgx, du = torch.empty_like(gx), torch.empty_like(u)
+    ms = functools.partial(cuda_median_ms, torch, runs=runs)
+    out = {"fwd_ms": ms(lambda: lk.lstm_forward(gx, u)),
+           "fwd_no_gates_ms": ms(lambda: lk.lstm_forward(gx, u, gates=False)),
+           "bwd_ms": ms(lambda: lk.lstm_backward(gates, u, h_seq, c_seq,
+                                                 dout)),
+           "bptt_ms": ms(lambda: lk._launch_bptt(gates, u, c_seq, dout, dgx,
+                                                 p)),
+           "du_ms": ms(lambda: lk._launch_du(h_seq, dgx, du)),
+           "du_splits": lk.du_splits(t_len, bsz, hidden, gx.device),
+           "plain_fwd_ms": cuda_median_ms(
+               torch, lambda: lk.plain_lstm_forward(gx, u), runs=plain_runs,
+               warmup=2),
+           "plain_bwd_ms": cuda_median_ms(
+               torch, lambda: lk.plain_lstm_backward(p_g, u, p_h, p_c, dout),
+               runs=plain_runs, warmup=2)}
+    out.update(lstm_bounds(shape, peaks))
+    out["fwd_us_per_dependent_step"] = 1e3 * out["fwd_ms"] / t_len
+    out["bptt_us_per_dependent_step"] = 1e3 * out["bptt_ms"] / t_len
+    out["dependent_steps"] = t_len
+    return out
+
+
 def phase_lstm_kernel(torch, peaks, ptxas):
     from metaasr_tpu_torch.ops import lstm_kernel as lk
 
@@ -1394,57 +1513,10 @@ def phase_lstm_kernel(torch, peaks, ptxas):
            "grad_l2rel_tol": LSTM_GRAD_L2REL, "ptxas": ptxas, "shapes": {}}
     ok = True
     for i, (name, shape) in enumerate(LSTM_SHAPES.items()):
-        t_len, bsz, hidden = shape
-        gx, u, dout = lstm_inputs(torch, shape, seed=20 + i)
-        gx_g = gx.clone().requires_grad_(True)
-        u_g = u.clone().requires_grad_(True)
-        before = (lk.lstm_recurrence.launches, lk.lstm_recurrence.bwd_launches)
-        h = lk.lstm_recurrence(gx_g, u_g)          # the autograd Function
-        (h * dout).sum().backward()
-        torch.cuda.synchronize()
-        counted = (lk.lstm_recurrence.launches - before[0],
-                   lk.lstm_recurrence.bwd_launches - before[1])
-        h_seq, c_seq, gates = lk.lstm_forward(gx, u)
-        p_h, p_c, p_g = lk.plain_lstm_forward(gx, u)
-        p_dgx, p_du = lk.plain_lstm_backward(p_g, u, p_h, p_c, dout)
-        entry = {"shape_tbh": list(shape),
-                 "plan": lk.plan(bsz, hidden, gx.device),
-                 "fwd_max_abs_diff": float((h.detach() - p_h).abs().max()),
-                 "gates_max_abs_diff": float((gates - p_g).abs().max()),
-                 "c_max_abs_diff": float((c_seq - p_c).abs().max()),
-                 "dgx_l2rel": l2rel(torch, gx_g.grad, p_dgx),
-                 "du_l2rel": l2rel(torch, u_g.grad, p_du),
-                 "dgx_max_abs_diff": float((gx_g.grad - p_dgx).abs().max()),
-                 "du_max_abs_diff": float((u_g.grad - p_du).abs().max()),
-                 "launches_counted": list(counted)}
-        ok = (ok and entry["fwd_max_abs_diff"] <= LSTM_FWD_TOL
-              and entry["gates_max_abs_diff"] <= LSTM_FWD_TOL
-              and entry["dgx_l2rel"] <= LSTM_GRAD_L2REL
-              and entry["du_l2rel"] <= LSTM_GRAD_L2REL and counted == (1, 1))
+        entry, good, tensors = lstm_check(torch, shape, seed=20 + i)
+        ok = ok and good
         if name in ("config1", "long_t"):
-            p = entry["plan"]
-            dgx, du = torch.empty_like(gx), torch.empty_like(u)
-            entry["fwd_ms"] = cuda_median_ms(
-                torch, lambda: lk.lstm_forward(gx, u))
-            entry["fwd_no_gates_ms"] = cuda_median_ms(
-                torch, lambda: lk.lstm_forward(gx, u, gates=False))
-            entry["bwd_ms"] = cuda_median_ms(
-                torch, lambda: lk.lstm_backward(gates, u, h_seq, c_seq, dout))
-            entry["bptt_ms"] = cuda_median_ms(torch, lambda: lk._launch_bptt(
-                gates, u, c_seq, dout, dgx, p))
-            entry["du_ms"] = cuda_median_ms(
-                torch, lambda: lk._launch_du(h_seq, dgx, du))
-            entry["du_splits"] = lk.du_splits(t_len, bsz, hidden, gx.device)
-            entry["plain_fwd_ms"] = cuda_median_ms(
-                torch, lambda: lk.plain_lstm_forward(gx, u), runs=10, warmup=2)
-            entry["plain_bwd_ms"] = cuda_median_ms(
-                torch, lambda: lk.plain_lstm_backward(p_g, u, p_h, p_c, dout),
-                runs=10, warmup=2)
-            entry.update(lstm_bounds(shape, peaks))
-            entry["fwd_us_per_dependent_step"] = 1e3 * entry["fwd_ms"] / t_len
-            entry["bptt_us_per_dependent_step"] = \
-                1e3 * entry["bptt_ms"] / t_len
-            entry["dependent_steps"] = t_len
+            entry.update(lstm_times(torch, shape, tensors, peaks))
         res["shapes"][name] = entry
 
     # the batch tile, from measurement: K3 and K3b's recurrence at each
@@ -4589,6 +4661,229 @@ def resident_paths(resident, k) -> dict:
             for name, c in resident["launches"].items()}
 
 
+# ------------------------------------------------------ the grain loader ----
+
+GRAIN_UTTS = 64             # utterances an accent, 2 accents (algo no
+GRAIN_WORKERS = 2           # trains on the first: 4 batches an epoch)
+GRAIN_STREAM_BATCHES = 6    # batches compared between 2 workers and none
+GRAIN_STEPS = 4             # the straight run; the resumed one takes 2 + 2
+GRAIN_BUDGET_S = 25
+# K1's rows at the caps: 8 full rows (1,600 frames), 8 ragged
+GRAIN_K1_LENS = [256240] * 8 + [401, 3200, 16000, 64000, 100001, 160000,
+                                200000, 255999]
+
+
+def config1_grain(data: str):
+    """config1 at full width on ``data`` with ``data.loader: grain``, 2
+    workers, a checkpoint every 2 steps (2 kept), no evaluation."""
+    cfg = config1()
+    cfg.data.data_dir = data
+    cfg.data.loader, cfg.data.num_workers = "grain", GRAIN_WORKERS
+    cfg.train.ckpt_every, cfg.train.keep_ckpts = 2, 2
+    cfg.train.eval_every, cfg.train.log_every = 0, 1
+    return cfg
+
+
+def phase_grain_loader(torch, smi, peaks, mono):
+    """data.loader: grain in MonoASRTrainer at config1 width: the 2-worker
+    stream against the 0-worker one at the caps, K1/K2/K3/K3b at the cap
+    shapes against their plain versions, a straight 4-step run against a 2
+    + 2 resumed one (exact), and their launches. ``mono``: phase 9's
+    result, printed beside this phase's step."""
+    import gc
+
+    from metaasr_tpu_torch.cli import make_trainer
+    from metaasr_tpu_torch.data.grain_loader import make_grain_loader
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+    from metaasr_tpu_torch.frontend import fbank_kernel
+    from metaasr_tpu_torch.frontend.fbank import (
+        FbankParams,
+        frame_lengths,
+        num_frames,
+    )
+
+    t_phase = time.perf_counter()
+    out = {"phase": "grain_loader", "card": smi,
+           "utts_per_accent": GRAIN_UTTS, "num_workers": GRAIN_WORKERS}
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "data")
+        generate_dataset(data, accents=("alpha", "bravo"),
+                         utts_per_accent=GRAIN_UTTS, words_per_utt=(2, 4),
+                         seed=2)
+        trainer = lambda name: make_trainer(  # noqa: E731
+            config1_grain(data), os.path.join(d, name), DEVICE)[0]
+        tr = trainer("straight")
+        dc, mc = tr.cfg.data, tr.cfg.model
+        bsz, cap, n_tok = dc.batch_size, dc.max_frames * 160 + 240, \
+            dc.max_tokens
+        t_out = num_frames(cap) // 2 // 2       # the VGG's two 2x2 pools
+
+        # gate 1: the 2-worker stream is the 0-worker one (workers first,
+        # so both read cold audio caches)
+        def stream(workers):
+            it = make_grain_loader(tr.train_datasets, bsz, cap, n_tok,
+                                   seed=dc.seed, num_workers=workers)
+            batches, waits = [], []
+            for _ in range(GRAIN_STREAM_BATCHES):
+                t0 = time.perf_counter()
+                batches.append(next(it))
+                waits.append(time.perf_counter() - t0)
+            it.close()
+            return batches, waits
+
+        with_workers, waits_w = stream(GRAIN_WORKERS)
+        alone, waits_0 = stream(0)
+        equal = all(sorted(a) == sorted(b) and a["texts"] == b["texts"]
+                    and all(np.array_equal(a[k], v)
+                            for k, v in b.items() if k != "texts")
+                    for a, b in zip(with_workers, alone))
+        shapes_ok = all(b["audio"].shape == (bsz, cap)
+                        and b["tokens"].shape == (bsz, n_tok)
+                        for b in with_workers + alone)
+        out["stream"] = {
+            "batches": GRAIN_STREAM_BATCHES, "equal": equal,
+            "audio_shape": list(alone[0]["audio"].shape),
+            "tokens_shape": list(alone[0]["tokens"].shape),
+            "next_blocks_s": {"0_workers": waits_0,
+                              f"{GRAIN_WORKERS}_workers": waits_w},
+            "next_blocks_s_total": {"0_workers": sum(waits_0),
+                                    f"{GRAIN_WORKERS}_workers": sum(waits_w)}}
+        del with_workers, alone
+        if not (equal and shapes_ok):
+            log(out)
+            raise SystemExit("the grain stream with workers differs from "
+                             "the one without, or a batch is off the caps")
+
+        # gate 2: the kernels at the cap shapes against their plain versions
+        part = card_peaks(torch.cuda.get_device_name(0))[0]
+        kernels, ok = {}, True
+        with strict_fp32():
+            audio_np = make_waves(np.random.default_rng(26), GRAIN_K1_LENS,
+                                  cap)
+            audio = torch.from_numpy(audio_np).to(DEVICE)
+            flens = frame_lengths(torch.tensor(
+                GRAIN_K1_LENS, dtype=torch.int32, device=DEVICE))
+            n_mel = tr.cfg.frontend.num_mel_bins
+            entry, good = k1_check(torch, audio_np, audio, flens,
+                                   GRAIN_K1_LENS, n_mel)
+            params = FbankParams.create(num_mel_bins=n_mel)
+            mats = fbank_kernel._device_matrices(params, audio.device)
+            entry.update(
+                shape=list(audio.shape),
+                ms=cuda_median_ms(torch, lambda: fbank_kernel.fused_log_mel(
+                    audio, flens, params), runs=10),
+                plain_ms=cuda_median_ms(
+                    torch, lambda: fbank_kernel.plain_log_mel(
+                        audio, flens, *mats), runs=3, warmup=1),
+                **k1_bound(audio, flens, params, part, peaks))
+            kernels["k1"], ok = entry, ok and good
+            del audio, flens, mats
+            shape = (bsz, t_out, n_tok, mc.vocab_size)
+            entry, good, inputs = ctc_check(torch, shape, seed=27)
+            entry.update(ctc_kernel_times(torch, shape, inputs, peaks,
+                                          runs=10, plain_runs=3,
+                                          device_times=False))
+            kernels["k2"], ok = entry, ok and good
+            del inputs
+            shape = (t_out, bsz, mc.blstm_hidden)
+            entry, good, tensors = lstm_check(torch, shape, seed=28)
+            entry.update(lstm_times(torch, shape, tensors, peaks, runs=10,
+                                    plain_runs=3))
+            kernels["k3_k3b"], ok = entry, ok and good
+            del tensors
+        out["kernels_at_caps"] = kernels
+        if not ok:
+            log(out)
+            raise SystemExit("a kernel disagrees with its plain version at "
+                             "the grain loader's cap shapes")
+
+        # gates 3 and 4: 4 straight steps against 2 + 2 resumed (a fresh
+        # trainer on the same workdir), exact launches. Deterministic
+        # algorithms: by default two runs of one feed part (PERF.md §6)
+        runs = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for name, wd, steps in (("straight", "straight", GRAIN_STEPS),
+                                    ("resumed_to_2", "resumed", 2),
+                                    ("resumed_to_4", "resumed", GRAIN_STEPS)):
+                t = tr if name == "straight" else trainer(wd)
+                zero_counts()
+                t0 = time.perf_counter()
+                state = t.train(max_steps=steps)
+                torch.cuda.synchronize()
+                runs[name] = {"seconds": time.perf_counter() - t0,
+                              "launches": all_counts(), "state": state,
+                              "next_index": t._grain_it.get_state()}
+                if name == "straight":
+                    peak = torch.cuda.max_memory_allocated()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ckpts = os.path.join(d, "resumed", "ckpts")
+        files = sorted(f for f in os.listdir(ckpts)
+                       if f.startswith("grain_state_"))
+        full, resumed = (runs[k]["state"] for k in ("straight",
+                                                    "resumed_to_4"))
+        leaves_equal = sorted(full["params"]) == sorted(resumed["params"]) \
+            and all(torch.equal(v, resumed["params"][k])
+                    for k, v in full["params"].items())
+        with open(os.path.join(d, "straight", "logs", "scalars.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        ms = statistics.median(1e3 * bsz / r["utts_per_sec"]
+                               for r in recs[1:])
+        out["resume"] = {
+            "deterministic_algorithms": True, "state_files": files,
+            "parameter_leaves_equal": leaves_equal,
+            "steps": {k: r["state"]["step"] for k, r in runs.items()},
+            "next_index": {k: r["next_index"] for k, r in runs.items()},
+            "seconds": {k: r["seconds"] for k, r in runs.items()},
+            "loss": [r["loss"] for r in recs]}
+        layers = 2 * mc.blstm_layers
+        want = {name: {"k1": n, "k2": n, "k3": layers * n, "k3b": layers * n,
+                       "k2b": 0}
+                for name, n in (("straight", GRAIN_STEPS),
+                                ("resumed_to_2", 2), ("resumed_to_4", 2))}
+        out["launches"] = {f"grain_{k}": r["launches"]
+                           for k, r in runs.items()}
+        out["launches_expected"] = {f"grain_{k}": v for k, v in want.items()}
+        out["step"] = {
+            "batch": [bsz, cap], "tokens": n_tok,
+            "lstm_shape_tbh": [t_out, bsz, mc.blstm_hidden],
+            "ctc_shape_bts": [bsz, t_out, 2 * n_tok + 1],
+            "ms_per_step": ms, "utts_per_s": bsz / (ms / 1e3),
+            "ms_per_step_logged": [1e3 * bsz / r["utts_per_sec"]
+                                   for r in recs],
+            "peak_mem_gb": peak / 1e9,
+            "phase9_at_64000_samples": {
+                "batch": mono["batch"], "ms_per_step": mono["ms_per_step"],
+                "utts_per_s": mono["utts_per_s"],
+                "peak_mem_gb": mono["peak_mem_gb"]}}
+        del tr, runs, full, resumed, state, t
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["budget_s"] = GRAIN_BUDGET_S
+    log(out)
+    if not all(math.isfinite(x) for x in out["resume"]["loss"]):
+        raise SystemExit("non-finite loss under the grain loader")
+    if files != ["grain_state_2.bin", "grain_state_4.bin"] or \
+            out["resume"]["next_index"]["resumed_to_4"] != {"next_index": 4}:
+        raise SystemExit(f"grain state files {files}")
+    if not leaves_equal:
+        raise SystemExit("the resumed grain run differs from the straight "
+                         "one")
+    if out["launches"] != out["launches_expected"]:
+        raise SystemExit(f"grain launches {out['launches']}, want "
+                         f"{out['launches_expected']}")
+    return out
+
+
+def grain_paths(grain, k) -> dict:
+    """Phase 26's launches of kernel ``k``, by run."""
+    return {path: c[k] for path, c in grain["launches"].items()}
+
+
 def last_line(torch, kind) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4860,6 +5155,7 @@ def main() -> int:
     flag = timed(phase_flagship, torch, smi)
     fusion = timed(phase_fusion_profiling, torch, smi)
     resident = timed(phase_resident_corpus, torch, smi, corpus)
+    grain = timed(phase_grain_loader, torch, smi, peaks, mono)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],
@@ -4867,9 +5163,11 @@ def main() -> int:
         "note": "random init, 4 FOMAML / 2 MAML / 2 conformer FOMAML "
                 "meta-steps on synthetic accents: a trend, not a result"}})
     # the host's speed beside the run's seconds: phase 21's B 16 decode
+    b16_ms = serving_benches["decode"][0]["ms_per_batch"]
     log({"phase_seconds": seconds,
          "total_phase_seconds": round(sum(seconds.values()), 1),
-         "b16_decode_ms": serving_benches["decode"][0]["ms_per_batch"]})
+         "b16_decode_ms": b16_ms,
+         "target_phase_seconds": 950 if b16_ms < 3000 else 1120})
     # the meta-test paths (phases 13-15), by kernel
     test_paths = {**meta_test["launches"],
                   "maml_heldout_eval": maml_entry["heldout_eval"]["launches"],
@@ -4888,7 +5186,8 @@ def main() -> int:
                           for path, c in lm["launches"].items()
                           if c[k] or k in ("k3", "k3b")}
     lstm_paths = lambda k: {**mono_paths(k), **new_paths(k),  # noqa: E731
-                            **lm_paths(k), **fusion_paths(fusion, k)}
+                            **lm_paths(k), **fusion_paths(fusion, k),
+                            **grain_paths(grain, k)}
     prep_paths = {path: c["k1"] for path, c in prep["launches"].items()}
     # phase 19: the conformer's meta-steps and CLI modes
     conformer_paths = lambda k: {  # noqa: E731
@@ -4907,7 +5206,8 @@ def main() -> int:
                 **lm_paths("k1"), **conformer_paths("k1"),
                 "bench": sum(m["launches"]["k1"] for m in bench["measures"]),
                 **quality_paths(quality, "k1"), **flagship_paths(flag, "k1"),
-                **fusion_paths(fusion, "k1"), **resident_paths(resident, "k1")}
+                **fusion_paths(fusion, "k1"), **resident_paths(resident, "k1"),
+                **grain_paths(grain, "k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
@@ -4916,7 +5216,8 @@ def main() -> int:
                 **lm_paths("k2"), **conformer_paths("k2"),
                 "bench": sum(m["launches"]["k2"] for m in bench["measures"]),
                 **quality_paths(quality, "k2"), **flagship_paths(flag, "k2"),
-                **fusion_paths(fusion, "k2"), **resident_paths(resident, "k2")}
+                **fusion_paths(fusion, "k2"), **resident_paths(resident, "k2"),
+                **grain_paths(grain, "k2")}
     k2b_paths = {**maml_paths("k2b"), **conformer_paths("k2b"),
                  **flagship_paths(flag, "k2b")}
     k2_task = k2["shapes"]["per_task"]
@@ -4926,6 +5227,23 @@ def main() -> int:
     k3_main = k3_shapes["config1"]
     yard = k3["library_yardstick"]
     at_lm = lm["kernels_at_lm_shape"]
+    # phase 26: each kernel at the grain loader's cap shapes
+    cap = grain["kernels_at_caps"]
+    cap_k1 = {k: cap["k1"][k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+        "tol_ratio", "oracle_max_abs_err")}
+    cap_k2 = {k: cap["k2"][k] for k in (
+        "shape_btuv", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "loss_max_abs_diff", "grad_l2rel", "dependent_steps")}
+    cap_k2["layout"] = cap["k2"]["plan"]["layout"]
+    cap_lstm = lambda tag, err: {  # noqa: E731
+        "shape_tbh": cap["k3_k3b"]["shape_tbh"],
+        "ms": cap["k3_k3b"][f"{tag}_ms"],
+        "plain_ms": cap["k3_k3b"][f"plain_{tag}_ms"],
+        "bound_ms": cap["k3_k3b"][f"{tag}_bound_ms"],
+        "bound_by": cap["k3_k3b"][f"{tag}_bound_by"],
+        "max_abs_err": cap["k3_k3b"][err],
+        "plan": cap["k3_k3b"]["plan"]}
     lstm_rows = [{
         "name": name, "route": "cuda",
         "source": "metaasr_tpu_torch/csrc/lstm.cu",
@@ -4949,6 +5267,7 @@ def main() -> int:
                      "bound_by": at_lm[f"{tag}_bound_by"],
                      "nn_lstm_ms": at_lm[f"nn_lstm_{tag}_ms"],
                      "kernel_layer_ms": at_lm[f"kernel_layer_{tag}_ms"]},
+        "at_grain_caps": cap_lstm(tag, err),
         **extra}
         for name, line, key, err, tag, lib_key, lib_what, extra in (
             ("lstm_forward", 48, "k3", "fwd_max_abs_diff", "fwd",
@@ -4986,6 +5305,7 @@ def main() -> int:
                       "front-end, DFT power, mel and log; cufft_path_ms is "
                       "the several-call composite (torch.fft.rfft, @ mel_t)",
         "cufft_path_ms": k1["shapes"][K1_MAIN[0]]["cufft_path_ms"],
+        "at_grain_caps": cap_k1,
         "device_ms_by_shape": {n: e["device_ms"]
                                for n, e in k1["shapes"].items()}}, {
         "name": "ctc_alpha_beta", "route": "cuda",
@@ -5001,7 +5321,7 @@ def main() -> int:
         "dependent_steps": k2_task["dependent_steps"],
         "plain_ms": k2_task["plain_ms"], "bound_ms": k2_task["bound_ms"],
         "bound_by": k2_task["bound_by"],
-        "library_ms": k2_task["library_ms"]}, {
+        "library_ms": k2_task["library_ms"], "at_grain_caps": cap_k2}, {
         "name": "ctc_hvp", "route": "cuda",
         "source": "metaasr_tpu_torch/csrc/ctc.cu",
         "replaces": "metaasr_tpu/ops/ctc_pallas.py:191",

@@ -169,9 +169,13 @@ class DataConfig:
     # utterance instead of the global (max_frames, max_tokens) cap
     meta_buckets: bool = True
     vocab: str = "char"            # "char" | "phone" | "bpe"
+    # worker processes of the grain loader (train/mono.py reads it; 0 =
+    # batches built in the training process)
     num_workers: int = 0
-    # "buckets" (BucketBatcher, exact (seed,step) resume, bucketed shapes)
-    # or "grain" (worker-parallel IO for heavy corpora)
+    # the baseline trainers' feed (train/mono.py): "buckets"
+    # (BucketBatcher, exact (seed, step) resume, bucketed shapes) or
+    # "grain" (data/grain_loader.py: worker-parallel, at the caps, its
+    # iterator state checkpointed beside the train state)
     loader: str = "buckets"
     seed: int = 0
     # per-accent dev split for training accents (0 = use held-out accents

@@ -10,20 +10,35 @@ run in K3 (forward) and K3b (backward).
 
 The train state is a dict {params, opt_state, step, seed, best_metric,
 stale_evals}; the best-metric tracking lives in the checkpointed state, so
-a resumed run never overwrites ``best`` with a worse model. The data order
-is a pure function of (seed, epoch, batch index), so resuming at
-``state["step"]`` replays the same stream. Not ported: the grain loader
-(``data.loader: grain``, ROADMAP.md port queue).
+a resumed run never overwrites ``best`` with a worse model.
+
+Two feeds (``data.loader``). ``buckets``: ``BucketBatcher``, bucketed
+shapes, an order that is a pure function of (seed, epoch, batch index), so
+resuming at ``state["step"]`` replays the same stream. ``grain``:
+``data/grain_loader.py`` at the fixed caps (``max_frames·160 + 240``
+samples, ``max_tokens`` tokens) on ``data.num_workers`` worker processes;
+its iterator state is written beside each checkpoint
+(``grain_state_<step>.bin``) and restored with it, so a resumed run replays
+the same stream too.
 """
 
 from __future__ import annotations
 
+import glob
 import math
+import os
+import pickle
+import re
 import time
 
 import torch
 
 from metaasr_tpu_torch.config import Config
+from metaasr_tpu_torch.data.grain_loader import (
+    make_grain_loader,
+    restore_iterator_state,
+    save_iterator_state,
+)
 from metaasr_tpu_torch.data.sampler import BucketBatcher, collate, item_samples
 from metaasr_tpu_torch.decode.greedy import greedy_to_texts
 from metaasr_tpu_torch.device import resolve_device
@@ -49,11 +64,9 @@ class MonoASRTrainer:
         if task.device != self.device:
             raise ValueError(f"task runs on {task.device}, trainer on "
                              f"{self.device}")
-        if cfg.data.loader != "buckets":
-            raise NotImplementedError(
-                f"data.loader={cfg.data.loader!r} (the grain loader) is not "
-                "ported yet (ROADMAP.md, port queue); use data.loader: "
-                "buckets")
+        if cfg.data.loader not in ("buckets", "grain"):
+            raise ValueError(f"data.loader={cfg.data.loader!r}: 'buckets' "
+                             "or 'grain'")
         self.cfg = cfg
         self.task = task
         self.tokenizer = tokenizer
@@ -70,6 +83,7 @@ class MonoASRTrainer:
         self.batcher = BucketBatcher(
             self.train_datasets, cfg.data.batch_size, seed=cfg.data.seed,
             tokenizer=tokenizer)
+        self._grain_it = None
 
     def init_state(self) -> dict:
         params = self.task.init_params(self.cfg.train.seed)
@@ -100,6 +114,47 @@ class MonoASRTrainer:
         return dict(state, params=new_params, opt_state=opt_state,
                     step=state["step"] + 1), metrics
 
+    def _make_feed(self, start_step: int):
+        """The training batches from batch ``start_step`` on: the bucketed
+        stream, or the grain loader at the caps, restored from
+        ``grain_state_<start_step>.bin`` where that file exists (without
+        it the stream starts at batch 0, as the reference's does)."""
+        if self.cfg.data.loader != "grain":
+            return self.batcher.iter_from(start_step)
+        d = self.cfg.data
+        self._grain_it = make_grain_loader(
+            self.train_datasets, d.batch_size, d.max_frames * 160 + 240,
+            d.max_tokens, seed=d.seed, num_workers=d.num_workers)
+        path = self._grain_state_path(start_step)
+        if start_step > 0 and os.path.exists(path):
+            with open(path, "rb") as f:
+                restore_iterator_state(self._grain_it, pickle.load(f))
+        return self._grain_it
+
+    def _grain_state_path(self, step: int) -> str:
+        return os.path.join(self.ckpt.ckpt_dir, f"grain_state_{step}.bin")
+
+    def _save_ckpt(self, step: int, state: dict, metrics=None,
+                   is_best: bool = False) -> None:
+        """Checkpoint the train state and, under the grain loader, the
+        iterator state beside it (written to ``.tmp``, then renamed); prune
+        the states older than ``keep_ckpts · ckpt_every`` steps."""
+        self.ckpt.save(step, state, metrics, is_best=is_best)
+        blob = save_iterator_state(self._grain_it)
+        if blob is None:
+            return
+        path = self._grain_state_path(step)
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(blob, f)
+        os.replace(path + ".tmp", path)
+        t = self.cfg.train
+        oldest = step - t.keep_ckpts * max(t.ckpt_every, 1)
+        for p in glob.glob(os.path.join(self.ckpt.ckpt_dir,
+                                        "grain_state_*.bin")):
+            m = re.search(r"grain_state_(\d+)\.bin$", p)
+            if m and int(m.group(1)) < oldest:
+                os.remove(p)
+
     def train(self, max_steps: int | None = None) -> dict:
         cfg = self.cfg.train
         max_steps = max_steps or cfg.max_steps
@@ -109,34 +164,45 @@ class MonoASRTrainer:
         metric_key = cfg.keep_best_metric.removeprefix("dev_")
         t0, utts = time.time(), 0
         step = state["step"]
-        feed = self.batcher.iter_from(step)
-        while step < max_steps:
-            batch = next(feed)
-            state, metrics = self.step(state, to_device(batch, self.device))
-            utts += len(batch["texts"])
-            step += 1
-            if step % cfg.log_every == 0:
-                out = {k: float(v) for k, v in metrics.items()}
-                out["utts_per_sec"] = utts / max(time.time() - t0, 1e-6)
-                self.logger.log(step, out)
-                t0, utts = time.time(), 0
-            if (cfg.eval_every > 0 and step % cfg.eval_every == 0
-                    and self.dev_dataset is not None):
-                dev = self.evaluate(state["params"], self.dev_dataset)
-                self.logger.log(step, {f"dev_{k}": v for k, v in dev.items()})
-                cur = dev.get(metric_key, dev["wer"])
-                is_best = cur < state["best_metric"]
-                stale = 0 if is_best else state["stale_evals"] + 1
-                state = dict(state, stale_evals=stale,
-                             best_metric=min(cur, state["best_metric"]))
-                self.ckpt.save(step, state, dev, is_best=is_best)
-                if cfg.early_stop_patience and \
-                        stale >= cfg.early_stop_patience:
-                    self.logger.log(step, {"early_stop": 1.0})
+        feed = self._make_feed(step)
+        try:
+            while step < max_steps:
+                # the bound is checked before the fetch: the saved iterator
+                # state never counts a batch that was not trained on
+                batch = next(feed, None)
+                if batch is None:
                     break
-            elif step % cfg.ckpt_every == 0:
-                self.ckpt.save(step, state)
-        self.ckpt.save(state["step"], state)
+                state, metrics = self.step(state,
+                                           to_device(batch, self.device))
+                utts += len(batch["texts"])
+                step += 1
+                if step % cfg.log_every == 0:
+                    out = {k: float(v) for k, v in metrics.items()}
+                    out["utts_per_sec"] = utts / max(time.time() - t0,
+                                                     1e-6)
+                    self.logger.log(step, out)
+                    t0, utts = time.time(), 0
+                if (cfg.eval_every > 0 and step % cfg.eval_every == 0
+                        and self.dev_dataset is not None):
+                    dev = self.evaluate(state["params"], self.dev_dataset)
+                    self.logger.log(step, {f"dev_{k}": v
+                                           for k, v in dev.items()})
+                    cur = dev.get(metric_key, dev["wer"])
+                    is_best = cur < state["best_metric"]
+                    stale = 0 if is_best else state["stale_evals"] + 1
+                    state = dict(state, stale_evals=stale, best_metric=min(
+                        cur, state["best_metric"]))
+                    self._save_ckpt(step, state, dev, is_best=is_best)
+                    if cfg.early_stop_patience and \
+                            stale >= cfg.early_stop_patience:
+                        self.logger.log(step, {"early_stop": 1.0})
+                        break
+                elif step % cfg.ckpt_every == 0:
+                    self._save_ckpt(step, state)
+            self._save_ckpt(state["step"], state)
+        finally:
+            if self._grain_it is not None:
+                self._grain_it.close()    # its workers; the state is kept
         return state
 
     def evaluate(self, params: dict, dataset, max_utts: int = 200) -> dict:

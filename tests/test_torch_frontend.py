@@ -163,9 +163,9 @@ def test_config_copy_loads_like_reference():
 def test_port_imports_neither_jax_nor_reference_package():
     """Every module of the port, imported in a fresh interpreter, pulls in
     neither ``jax`` nor ``metaasr_tpu`` (nor ``triton``: kernels are built
-    where they launch), and no import builds or loads a kernel: ``nvcc``
-    would run in a subprocess, and a loaded library sits in
-    ``ops._build._libs``."""
+    where they launch; nor ``grain``, which imports JAX), and no import
+    builds or loads a kernel: ``nvcc`` would run in a subprocess, and a
+    loaded library sits in ``ops._build._libs``."""
     code = (
         "import importlib, pkgutil, subprocess, sys\n"
         "def no_build(*a, **k):\n"
@@ -176,7 +176,8 @@ def test_port_imports_neither_jax_nor_reference_package():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'metaasr_tpu' or k.startswith('metaasr_tpu.')"
-        " or k == 'triton' or k.startswith('triton.'))\n"
+        " or k == 'triton' or k.startswith('triton.')"
+        " or k == 'grain' or k.startswith('grain.'))\n"
         "print(len(mods), bad)\n"
         "assert not bad, bad\n"
         "for m in ('serve.batcher', 'ops.ctc_kernel', 'meta.maml',\n"
@@ -188,7 +189,7 @@ def test_port_imports_neither_jax_nor_reference_package():
         "          'scripts.sweep_throughput', 'serve', 'scripts.decode_bench',\n"
         "          'scripts.serve_bench', 'scripts.batcher_bench',\n"
         "          'scripts.flagship_results', 'scripts.demo_meta_adaptation',\n"
-        "          'scripts.kshot_curve'):\n"
+        "          'scripts.kshot_curve', 'data.grain_loader'):\n"
         "    assert 'metaasr_tpu_torch.' + m in mods, mods\n"
         "from metaasr_tpu_torch.ops import _build\n"
         "assert not _build._libs, sorted(_build._libs)\n")

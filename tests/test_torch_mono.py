@@ -288,6 +288,9 @@ def test_train_evaluates_checkpoints_and_resumes_exactly(corpus, tmp_path):
 
 
 def test_early_stopping_and_unported_loader(corpus, tmp_path):
+    """Early stopping under both feeds; the loader half once held the grain
+    loader's refusal and now holds that it trains (``data.loader: grain``),
+    while an unknown loader is refused."""
     cfg = _cfg(Config, corpus)
     cfg.optimizer.name, cfg.optimizer.lr = "sgd", 0.0   # dev never improves
     cfg.train.eval_every, cfg.train.early_stop_patience = 1, 2
@@ -297,10 +300,18 @@ def test_early_stopping_and_unported_loader(corpus, tmp_path):
     assert (state["step"], state["stale_evals"]) == (3, 2)
     assert os.path.exists(os.path.join(trainer.ckpt.ckpt_dir, "best",
                                        "metrics.json"))
+    # data.loader: grain trains (and stops) the same way, its iterator
+    # state beside each checkpoint
     cfg.data.loader = "grain"
-    with pytest.raises(NotImplementedError, match="grain") as e:
-        cli.make_trainer(cfg, str(tmp_path / "wd2"), device="cpu")
-    assert "ROADMAP.md" in str(e.value)
+    trainer, _ = cli.make_trainer(cfg, str(tmp_path / "wd2"), device="cpu")
+    state = trainer.train(max_steps=10)
+    assert (state["step"], state["stale_evals"]) == (3, 2)
+    assert trainer._grain_it.get_state() == {"next_index": 3}
+    assert os.path.exists(os.path.join(trainer.ckpt.ckpt_dir,
+                                       "grain_state_3.bin"))
+    cfg.data.loader = "grian"
+    with pytest.raises(ValueError, match="buckets"):
+        cli.make_trainer(cfg, str(tmp_path / "wd3"), device="cpu")
 
 
 def test_greedy_bundle_serves_the_trained_weights(corpus, tmp_path):
