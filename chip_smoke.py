@@ -260,14 +260,14 @@ Phases, one JSON line each; any failure exits non-zero:
              and busy share of one more profiled step, peak memory; before
              it, one step at the tests' width on cuda against the cpu
              under strict fp32 (loss rtol 1e-4, grad_norm rtol 1e-3). (b)
-             ``demo_meta_adaptation.main --steps 20 --utts-per-accent 24``
+             ``demo_meta_adaptation.main --steps 2 --utts-per-accent 24``
              at its own width (d 128, 4 + 2 layers, bf16) into a temporary
              corpus, workdir and output: both markdown rows, every WER
              finite, and the exact K1/K2 launches of each call of
              ``meta_train``, ``train``, ``meta_adapt`` and ``decode``. (c)
              ``kshot_curve.main --ks 0,1,5 --draws 2 --max-utts 16`` over a
-             ``fomaml`` and a ``multi`` workdir trained 4 steps each under
-             the flagship recipe at config3 width: both restore step 4,
+             ``fomaml`` and a ``multi`` workdir trained 2 steps each under
+             the flagship recipe at config3 width: both restore step 2,
              the reference's JSON layout, every WER finite, exact launches
              (K2 = adapt_steps x draws x nonzero ks x runs); then
              ``--tiny --ks 0`` over a workdir written on the cpu, run on
@@ -364,6 +364,31 @@ Phases, one JSON line each; any failure exits non-zero:
              at 64,000 samples, the seconds each ``next`` of the stream
              blocks with 0 and 2 workers, peak memory, the phase's seconds
              beside its budget (25 s).
+27. data_parallel — the task-axis data-parallel meta-step at config3
+             width and depth (``config3_train()`` through
+             ``cli.make_trainer``, 4 x (4 + 4), 3 inner steps, bf16,
+             SpecAugment on, the streaming feed) on 4 synthetic accents x
+             16 utterances (``tango`` held out), 2 ``meta_train`` steps a
+             run under deterministic algorithms: (1) a group of one over
+             NCCL (``parallel.initialize(world_size=1, rank=0,
+             backend="nccl")``, in this process) against no group: equal
+             parameters (``torch.equal``), equal logged ``meta_loss`` and
+             ``grad_norm``, exactly 16 K1 and 32 K2 each and 2 gradient
+             all-reduces; (2) two gloo ranks on the one card, each a
+             ``--dp-worker`` subprocess of this script running 2 of the 4
+             tasks, against the one-process run: step 1's ``meta_loss``
+             within 1e-6 and ``grad_norm`` within 1e-5 relative, step 2's
+             ``meta_loss`` within 1e-4, the ranks' parameters equal and
+             within 1e-5 of one process's, exactly 8 K1 and 16 K2 a rank,
+             checkpoints and logs only in rank 0's workdir, no resident
+             store. The ranks start before phase 26, so that their
+             start-up overlaps it, run one throwaway local meta-gradient
+             (their first-call costs) and wait until the one-process runs
+             are done. Printed, not gated: ms a step of each run from its
+             logged rates, the all-reduce's bytes and ms (NCCL with one
+             rank; gloo between the two), peak memory a rank, each rank's
+             stages in seconds from the go, the phase's seconds beside its
+             budget (30 s).
 
 Then a line of the held-out WERs of phases 13, 14 and 19 (random init: a
 trend), a ``phase_seconds`` line with their sum, phase 21's B 16 decode
@@ -380,7 +405,8 @@ off only where the card is held against a plain version or the CPU
 12, phase 18's kernels at the LM's shape, LM parity and cuda/cpu serving,
 and phase 19's cuda/cpu serving), through ``strict_fp32``.
 
-Four more modes, each needing one card:
+Four more modes, each needing one card (and ``--dp-worker RANK DIR``,
+phase 27's rank processes, which ``start_data_parallel`` starts):
 
     python3 chip_smoke.py --precision-ab    # phases 9, 10 under the policy,
                                             # then under strict fp32
@@ -3584,9 +3610,9 @@ def phase_serving_benches(torch, smi):
 
 CONFIG2_YAML = "configs/config2_multitask_transformer.yaml"
 CONFIG2_STEPS = 8           # train.max_steps of config2's CLI run
-DEMO_STEPS = 20             # demo_meta_adaptation --steps (default 800)
+DEMO_STEPS = 2              # demo_meta_adaptation --steps (default 800)
 DEMO_UTTS = 24              # its --utts-per-accent (default 192)
-KSHOT_TRAIN_STEPS = 4       # steps of each workdir kshot_curve restores
+KSHOT_TRAIN_STEPS = 2       # steps of each workdir kshot_curve restores
 KSHOT_KS = (0, 1, 5)
 KSHOT_DRAWS = 2
 KSHOT_MAX_UTTS = 16
@@ -4884,6 +4910,325 @@ def grain_paths(grain, k) -> dict:
     return {path: c[k] for path, c in grain["launches"].items()}
 
 
+# ------------------------------------------- the data-parallel meta-step ----
+
+DP_ACCENTS = ("alpha", "bravo", "echo", "delta", "tango")  # tango held out
+DP_UTTS = 16                # utterances an accent
+DP_STEPS = 2
+DP_WORLD = 2                # gloo ranks on the one card
+DP_LOSS_RTOL = (1e-6, 1e-4)  # step 1's and step 2's meta_loss
+DP_NORM_RTOL = 1e-5         # step 1's grad_norm: a wrong 1 / M doubles it
+DP_PARAM_ATOL = 1e-5
+DP_TIMEOUT_S = 120          # the rendezvous and every collective
+DP_BUDGET_S = 30
+
+
+def dp_trainer(data: str, workdir: str, group):
+    """``make_trainer`` on config3_train() over phase 27's corpus: the
+    streaming feed (a group has no resident store), a log line a step, a
+    checkpoint at the end only."""
+    from metaasr_tpu_torch.cli import make_trainer
+
+    cfg = config3_train()[0]
+    cfg.data.data_dir, cfg.data.heldout_accents = data, ("tango",)
+    cfg.data.resident = "off"
+    cfg.train.log_every, cfg.train.ckpt_every = 1, 10 ** 6
+    return make_trainer(cfg, workdir, DEVICE, group)[0]
+
+
+def dp_train(torch, tr, workdir: str) -> dict:
+    """``tr.meta_train(max_steps=DP_STEPS)`` from zeroed counts under
+    deterministic algorithms -> final parameters (on the cpu), launches,
+    gradient all-reduces, logged records, ms a step from them, peak
+    memory, the store, the workdir's entries."""
+    from metaasr_tpu_torch.parallel import reduce_outer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        zero_counts()
+        reduce_outer.all_reduces = 0
+        t0 = time.perf_counter()
+        state = tr.meta_train(max_steps=DP_STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = all_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    logs = os.path.join(workdir, "logs", "scalars.jsonl")
+    recs = []
+    if os.path.exists(logs):
+        with open(logs) as f:
+            recs = [json.loads(line) for line in f]
+    m = tr.cfg.meta
+    per_step = m.tasks_per_batch * (m.k_support * m.inner_steps + m.k_query)
+    return {"params": {k: v.detach().cpu() for k, v in state["params"].items()},
+            "step": state["step"], "launches": counts,
+            "all_reduces": reduce_outer.all_reduces, "records": recs,
+            "ms_per_step_logged": [1e3 * per_step / r["utts_per_sec"]
+                                   for r in recs],
+            "meta_train_s": seconds, "rows": [tr.rows.start, tr.rows.stop],
+            "store": tr._store is not None,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "workdir": ({e: sorted(os.listdir(os.path.join(workdir, e)))
+                         for e in sorted(os.listdir(workdir))}
+                        if os.path.isdir(workdir) else {})}
+
+
+def allreduce_ms(torch, n: int, group, runs: int = 5) -> float:
+    """Median ms of one fp32 sum all-reduce of ``n`` elements on the card,
+    the ranks released together by a barrier (after one unmeasured)."""
+    import torch.distributed as dist
+
+    from metaasr_tpu_torch.parallel import barrier
+
+    buf = torch.zeros(n, dtype=torch.float32, device=DEVICE)
+    times = []
+    for _ in range(runs + 1):
+        barrier(group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=group)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[1:])
+
+
+def dp_worker(rank: int, d: str) -> int:
+    """``--dp-worker RANK DIR``: one of phase 27's gloo ranks on the card.
+    Joins the group, builds its trainer on ``DIR/data``, waits for
+    ``DIR/go`` (the parent's one-process runs come first), trains and
+    writes ``DIR/rank<RANK>.pt`` with the wall-clock times of each stage.
+    Returns 3 if the parent goes away first."""
+    stamps = {"started": time.time()}
+    import torch
+    import torch.distributed as dist
+
+    from metaasr_tpu_torch.device import resolve_device
+    from metaasr_tpu_torch.parallel import initialize
+
+    resolve_device(DEVICE)
+    torch.zeros(1, device=DEVICE)
+    # its first call imports torch._dynamo and FSDP (seconds): not after
+    # the go. dp_train sets it again around meta_train.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    stamps["cuda_ready"] = time.time()
+    group = initialize(init_method=f"file://{d}/rdzv_gloo",
+                       world_size=DP_WORLD, rank=rank, backend="gloo",
+                       device=DEVICE, timeout=DP_TIMEOUT_S)
+    stamps["group_ready"] = time.time()
+    try:
+        workdir = os.path.join(d, f"wd_rank{rank}")
+        tr = dp_trainer(os.path.join(d, "data"), workdir, group)
+        stamps["trainer_built"] = time.time()
+        # before the go, a throwaway local meta-gradient on step 0's rows
+        # (no collective, no update): the process's first-call costs
+        # (CUDA modules, cuBLAS, the kernels' libraries) stay off the
+        # measured steps, as in the parent, which has run steps before
+        tr._grad_fn(tr.init_state()["params"], next(tr._feed(0, 1)), 0)
+        torch.cuda.synchronize()
+        stamps["warmed_up"] = time.time()
+        parent, deadline = os.getppid(), time.monotonic() + 1800
+        while not os.path.exists(os.path.join(d, "go")):
+            if os.getppid() != parent or time.monotonic() > deadline:
+                return 3
+            time.sleep(0.02)
+        stamps["go_seen"] = time.time()
+        out = dp_train(torch, tr, workdir)
+        stamps["trained"] = time.time()
+        n = sum(v.numel() for v in out["params"].values())
+        out["allreduce"] = {"bytes": 4 * n,
+                            "ms": allreduce_ms(torch, n, group)}
+        stamps["allreduce_timed"] = time.time()
+        out["stamps"] = stamps
+        path = os.path.join(d, f"rank{rank}.pt")
+        torch.save(out, path + ".tmp")
+        os.replace(path + ".tmp", path)   # whole, or not there
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def start_data_parallel():
+    """Phase 27's corpus and its two gloo ranks -> (TemporaryDirectory,
+    processes, log paths). ``main`` starts them before phase 26, so that
+    their start-up (interpreter, CUDA context, trainer) overlaps it; they
+    wait for the phase's go."""
+    from metaasr_tpu_torch.data.synthetic import generate_dataset
+
+    tmp = tempfile.TemporaryDirectory()
+    generate_dataset(os.path.join(tmp.name, "data"), accents=DP_ACCENTS,
+                     utts_per_accent=DP_UTTS, words_per_utt=(2, 4), seed=0)
+    logs = [os.path.join(tmp.name, f"rank{r}.log") for r in range(DP_WORLD)]
+    procs = []
+    for r, path in enumerate(logs):
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-worker",
+                 str(r), tmp.name], stdout=f, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    return tmp, procs, logs
+
+
+def dp_wait(procs, logs, results, timeout: float) -> None:
+    """Wait until every rank has written its ``results`` file (its exit,
+    which tears down a CUDA context, is waited for later); a rank that
+    fails, or the time limit, stops the run with that rank's log."""
+    t0 = time.monotonic()
+    while not all(os.path.exists(f) for f in results):
+        codes = [p.poll() for p in procs]
+        bad = [r for r, c in enumerate(codes) if c is not None
+               and not os.path.exists(results[r])]
+        if bad or time.monotonic() - t0 > timeout:
+            r = bad[0] if bad else 0
+            with open(logs[r]) as f:
+                tail = f.read()[-3000:]
+            raise SystemExit(f"data-parallel rank {r} "
+                             f"{'exited ' + str(codes[r]) if bad else 'late'}"
+                             f":\n{tail}")
+        time.sleep(0.02)
+
+
+def phase_data_parallel(torch, smi, started=None):
+    """The task-axis data-parallel meta-step at config3 width: a group of
+    one over NCCL against no group (bit for bit), then two gloo ranks on
+    the one card, each running 2 of the 4 tasks, against the one-process
+    run; exact launches and all-reduces, rank-0-only writes. ``started``:
+    ``start_data_parallel()``'s result, else the ranks start here."""
+    import torch.distributed as dist
+
+    from metaasr_tpu_torch.parallel import initialize
+
+    t_phase = time.perf_counter()
+    m = config3_train()[0].meta
+    per_rank = m.tasks_per_batch // DP_WORLD
+    want_one = kernel_counts(DP_STEPS * 2 * m.tasks_per_batch,
+                             DP_STEPS * m.tasks_per_batch
+                             * (m.inner_steps + 1))
+    want_rank = kernel_counts(DP_STEPS * 2 * per_rank,
+                              DP_STEPS * per_rank * (m.inner_steps + 1))
+    out = {"phase": "data_parallel", "card": smi, "world": DP_WORLD,
+           "tasks": m.tasks_per_batch, "steps": DP_STEPS,
+           "accents": list(DP_ACCENTS), "utts_per_accent": DP_UTTS,
+           "deterministic_algorithms": True}
+    tmp, procs, logs = started or start_data_parallel()
+    with tmp as d:
+        data = os.path.join(d, "data")
+        try:
+            # gate 1: a group of one over NCCL, then no group
+            group = initialize(init_method=f"file://{d}/rdzv_nccl",
+                               world_size=1, rank=0, backend="nccl",
+                               timeout=DP_TIMEOUT_S)
+            try:
+                wd = os.path.join(d, "wd_nccl")
+                nccl = dp_train(torch, dp_trainer(data, wd, group), wd)
+                n = sum(v.numel() for v in nccl["params"].values())
+                nccl["allreduce"] = {"bytes": 4 * n,
+                                     "ms": allreduce_ms(torch, n, group)}
+            finally:
+                dist.destroy_process_group()
+            wd = os.path.join(d, "wd_one")
+            one = dp_train(torch, dp_trainer(data, wd, None), wd)
+            # gate 2: the two gloo ranks, waiting since they started
+            t0, go = time.perf_counter(), time.time()
+            open(os.path.join(d, "go"), "w").close()
+            results = [os.path.join(d, f"rank{r}.pt")
+                       for r in range(DP_WORLD)]
+            dp_wait(procs, logs, results, 600)
+            out["ranks_wait_s"] = time.perf_counter() - t0
+            ranks = [torch.load(f, weights_only=False) for f in results]
+            for p in procs:   # they exit on their own once written
+                p.wait(timeout=120)
+            out["ranks_exit_s"] = time.perf_counter() - t0
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        codes = [p.returncode for p in procs]
+    if codes != [0] * DP_WORLD:
+        raise SystemExit(f"data-parallel ranks exited {codes}")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(a), abs(b), 1e-30)
+
+    def params_equal(a, b):
+        return all(torch.equal(a[k], v) for k, v in b.items())
+
+    def summary(run):
+        return {k: run[k] for k in ("step", "launches", "all_reduces",
+                                    "rows", "store", "ms_per_step_logged",
+                                    "meta_train_s", "peak_mem_gb",
+                                    "workdir")} | {
+            "meta_loss": [r["meta_loss"] for r in run["records"]],
+            "grad_norm": [r["grad_norm"] for r in run["records"]],
+            "allreduce": run.get("allreduce")}
+
+    r0, r1 = ranks
+    worst_param = max(float((r0["params"][k] - v).abs().max())
+                      for k, v in one["params"].items())
+    gaps = {"meta_loss": [rel(a["meta_loss"], b["meta_loss"])
+                          for a, b in zip(r0["records"], one["records"])],
+            "grad_norm": [rel(a["grad_norm"], b["grad_norm"])
+                          for a, b in zip(r0["records"], one["records"])],
+            "param_max_abs": worst_param}
+    out["group_of_one_nccl"] = summary(nccl)
+    out["one_process"] = summary(one)
+    out["gloo_ranks"] = [summary(r) for r in ranks]
+    out["gloo_stamps_s_from_go"] = [
+        {k: round(v - go, 3) for k, v in r["stamps"].items()} for r in ranks]
+    out["gloo_vs_one_process"] = gaps
+    out["nccl_equal"] = {
+        "params": params_equal(nccl["params"], one["params"]),
+        "records": all(a[k] == b[k] for a, b in zip(nccl["records"],
+                                                    one["records"])
+                       for k in ("meta_loss", "grad_norm"))}
+    out["ranks_params_equal"] = params_equal(r0["params"], r1["params"])
+    out["launches"] = {"dp_nccl_group_of_one": nccl["launches"],
+                       "dp_one_process": one["launches"],
+                       **{f"dp_gloo_rank{r}": x["launches"]
+                          for r, x in enumerate(ranks)}}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["budget_s"] = DP_BUDGET_S
+    log(out)
+    if not (out["nccl_equal"]["params"] and out["nccl_equal"]["records"]
+            and len(nccl["records"]) == len(one["records"]) == DP_STEPS):
+        raise SystemExit("the NCCL group of one differs from no group")
+    if nccl["all_reduces"] != DP_STEPS or one["all_reduces"] != 0:
+        raise SystemExit(f"all-reduces {nccl['all_reduces']} with the NCCL "
+                         f"group, {one['all_reduces']} without")
+    for name, run, want in (("nccl", nccl, want_one), ("one", one, want_one),
+                            ("rank0", r0, want_rank),
+                            ("rank1", r1, want_rank)):
+        if run["launches"] != want:
+            raise SystemExit(f"{name} launches {run['launches']}, want "
+                             f"{want}")
+    if not (len(r0["records"]) == DP_STEPS and r1["records"] == []
+            and r0["all_reduces"] == r1["all_reduces"] == DP_STEPS):
+        raise SystemExit("rank 0 must log every step, rank 1 nothing")
+    if not (gaps["meta_loss"][0] <= DP_LOSS_RTOL[0]
+            and gaps["grad_norm"][0] <= DP_NORM_RTOL
+            and gaps["meta_loss"][1] <= DP_LOSS_RTOL[1]):
+        raise SystemExit(f"gloo ranks against one process: {gaps}")
+    if not (out["ranks_params_equal"] and worst_param <= DP_PARAM_ATOL):
+        raise SystemExit(f"ranks' parameters equal: "
+                         f"{out['ranks_params_equal']}, from one process "
+                         f"{worst_param}")
+    if (sorted(r0["workdir"]) != ["ckpts", "logs"]
+            or not all(r0["workdir"].values()) or r1["workdir"]):
+        raise SystemExit(f"workdirs: rank 0 {r0['workdir']}, rank 1 "
+                         f"{r1['workdir']}")
+    if r0["store"] or r1["store"] or one["store"]:
+        raise SystemExit("a resident store was built")
+    return out
+
+
+def dp_paths(dp, k) -> dict:
+    """Phase 27's launches of kernel ``k``, by run."""
+    return {path: c[k] for path, c in dp["launches"].items()}
+
+
 def last_line(torch, kind) -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5155,7 +5500,9 @@ def main() -> int:
     flag = timed(phase_flagship, torch, smi)
     fusion = timed(phase_fusion_profiling, torch, smi)
     resident = timed(phase_resident_corpus, torch, smi, corpus)
+    dp_ranks = start_data_parallel()     # they start up during phase 26
     grain = timed(phase_grain_loader, torch, smi, peaks, mono)
+    dp = timed(phase_data_parallel, torch, smi, dp_ranks)
     log({"heldout_wer_random_init_trend": {
         "fomaml_config3": meta_test["profiled_eval_heldout"]["scores"],
         "maml_config4": maml_entry["heldout_eval"]["scores"],
@@ -5207,7 +5554,7 @@ def main() -> int:
                 "bench": sum(m["launches"]["k1"] for m in bench["measures"]),
                 **quality_paths(quality, "k1"), **flagship_paths(flag, "k1"),
                 **fusion_paths(fusion, "k1"), **resident_paths(resident, "k1"),
-                **grain_paths(grain, "k1")}
+                **grain_paths(grain, "k1"), **dp_paths(dp, "k1")}
     k2_paths = {**{f"meta_step_{c['tasks']}x{c['shots']}": c["k2_launches"]
                    for c in meta["cells"]},
                 "train_entry": entry["k2_launches"], **mono_paths("k2"),
@@ -5217,7 +5564,7 @@ def main() -> int:
                 "bench": sum(m["launches"]["k2"] for m in bench["measures"]),
                 **quality_paths(quality, "k2"), **flagship_paths(flag, "k2"),
                 **fusion_paths(fusion, "k2"), **resident_paths(resident, "k2"),
-                **grain_paths(grain, "k2")}
+                **grain_paths(grain, "k2"), **dp_paths(dp, "k2")}
     k2b_paths = {**maml_paths("k2b"), **conformer_paths("k2b"),
                  **flagship_paths(flag, "k2b")}
     k2_task = k2["shapes"]["per_task"]
@@ -5348,6 +5695,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"] and len(sys.argv) == 4:
+        code = dp_worker(int(sys.argv[2]), sys.argv[3])
+        sys.stdout.flush()
+        os._exit(code)   # its results are written: skip the teardown
     if sys.argv[1:2] == ["--ctc-times"] and len(sys.argv) == 3:
         ctc_times(sys.argv[2])
         sys.exit(0)

@@ -105,12 +105,14 @@ def build_tokenizer(cfg: Config):
     raise ValueError(f"unknown vocab type {kind}")
 
 
-def make_trainer(cfg: Config, workdir: str, device=None):
+def make_trainer(cfg: Config, workdir: str, device=None, group=None):
     """(trainer, tokenizer) for the configured algo: ``MonoASRTrainer``
     (no), ``MultitaskASRTrainer`` (multi) or ``MetaASRTrainer`` (fomaml,
     maml, reptile). Held-out accents (``data.heldout_accents``) are kept out of
     the training pool; the baselines evaluate on a per-accent dev split
-    (``data.dev_fraction``) or, without one, on the first held-out accent."""
+    (``data.dev_fraction``) or, without one, on the first held-out accent.
+    ``group`` (``parallel.initialize()``'s) makes the meta-trainer data
+    parallel over tasks; the baselines take none."""
     from metaasr_tpu_torch.data.dataset import load_accent_datasets
     from metaasr_tpu_torch.task import ASRTask
     from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
@@ -122,6 +124,9 @@ def make_trainer(cfg: Config, workdir: str, device=None):
     algo = cfg.meta.algo
     if algo not in ("no", "multi", "fomaml", "maml", "reptile"):
         raise ValueError(f"unknown algo {algo}")
+    if group is not None and algo in ("no", "multi"):
+        raise ValueError(f"algo {algo} trains in one process: a process "
+                         "group is for the meta-trainer")
     tok = build_tokenizer(cfg)
     cfg.model.vocab_size = tok.vocab_size
     spk_path = ""
@@ -140,7 +145,7 @@ def make_trainer(cfg: Config, workdir: str, device=None):
     task = ASRTask(cfg, tok.sos_eos_id, device=device)
     if algo in ("fomaml", "maml", "reptile"):
         return MetaASRTrainer(cfg, task, dsets, heldout, tok, workdir,
-                              device=device), tok
+                              device=device, group=group), tok
     dev = next(iter(heldout.values())) if heldout else None
     if cfg.data.dev_fraction > 0:
         # per-accent train/dev partition; the first accent's dev set scores
@@ -232,8 +237,10 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     if args.mesh_tasks:
-        raise SystemExit("--mesh-tasks: the task mesh is not ported yet "
-                         "(ROADMAP.md, port queue: 'More than one GPU')")
+        raise SystemExit("--mesh-tasks: the CLI's task mesh is not ported "
+                         "yet (ROADMAP.md §1 item 6b); a process group from "
+                         "metaasr_tpu_torch.parallel.initialize() runs "
+                         "MetaASRTrainer(..., group=) data-parallel")
     if args.export_platforms is not None:
         raise SystemExit(
             "--export-platforms names the StableHLO targets of the JAX "

@@ -227,10 +227,16 @@ class TaskSampler:
             qry_idx.append(q_idx.astype(np.int32))
         return list(accents), np.stack(sup_idx), np.stack(qry_idx)
 
-    def sample(self, step: int) -> dict:
-        """Meta-batch for ``step``."""
+    def sample(self, step: int, rows: slice | None = None) -> dict:
+        """Meta-batch for ``step``. ``rows``: collate only these task rows
+        (a rank's, ``parallel.task_rows``); the draw stays global and the
+        bucket shape is decided over all M rows, so every rank pads alike
+        and the ranks' rows together are the one-process batch."""
         accents, sup_idx, qry_idx = self.sample_indices(int(step))
         num_samples, num_tokens = self.step_shape(accents, sup_idx, qry_idx)
+        if rows is not None:
+            accents = accents[rows]
+            sup_idx, qry_idx = sup_idx[rows], qry_idx[rows]
         sup, qry = [], []
         for a, s_idx, q_idx in zip(accents, sup_idx, qry_idx):
             ds = self.datasets[a]

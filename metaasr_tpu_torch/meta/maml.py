@@ -22,9 +22,17 @@ verbatim by the ASR task.
   to the autograd loop (``ASRTask.require_full_autodiff``).
 - The task axis is a loop: batches carry a leading task axis [M, k, ...],
   each task runs and back-propagates its query loss / M in turn (one task's
-  graph alive at a time), and the outer gradient is the mean over tasks.
-  ``torch.func.vmap`` is not used: the kernels are ctypes calls that cannot
-  see batched tensors.
+  graph alive at a time) into fp32 accumulators, and the outer gradient is
+  the mean over tasks. ``torch.func.vmap`` is not used: the kernels are
+  ctypes calls that cannot see batched tensors.
+- Data parallel over tasks (``group``, ``task_offset``): each of W
+  processes gets its M / W rows of the meta-batch, seeds them by their
+  GLOBAL task index, divides each query loss by the global M, and
+  ``parallel.reduce_outer`` sums the fp32 accumulators across processes
+  (one all-reduce a step) before the cast to the parameters' dtype; the
+  metrics come from every rank's per-task losses. The result is one
+  process's over all M tasks. Second-order MAML shards the same task axis
+  (the port has no data axis).
 - ``preprocess_fn`` (front-end + SpecAugment) runs once per task batch,
   outside the inner loop.
 - Meta-SGD needs no flag here: a ``{"model", "inner_lr"}`` tree updates
@@ -43,6 +51,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from metaasr_tpu_torch.parallel.distributed import reduce_outer, world_size
 from metaasr_tpu_torch.utils.tree import flatten, unflatten_like
 from metaasr_tpu_torch.weights import flax_path
 
@@ -229,12 +238,13 @@ def _grad_dtype(cfg: MetaAlgoConfig):
 
 
 def _task_losses(loss_fn, inner_adapt, preprocess_fn, params, meta_batch,
-                 seed: int, inner_scale, widen_scale):
+                 seed: int, inner_scale, widen_scale, task_offset: int = 0):
     """Per task, in turn: (query loss at the adapted parameters, with its
-    graph back to ``params``; support loss at inner step 0)."""
+    graph back to ``params``; support loss at inner step 0). Row m is
+    global task ``task_offset + m``, and seeded so."""
     dev = _device(meta_batch["support"])
     for m in range(_num_tasks(meta_batch)):
-        task_seed = fold_in(seed, m)
+        task_seed = fold_in(seed, task_offset + m)
         support, query = _preprocess(
             preprocess_fn, _task(meta_batch["support"], m),
             _task(meta_batch["query"], m), task_seed, dev)
@@ -271,27 +281,31 @@ def make_meta_loss(loss_fn: LossFn, cfg: MetaAlgoConfig,
 def maml_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
                preprocess_fn: Callable | None = None):
     """Returns ``grad_fn(params, meta_batch, seed, inner_scale=None,
-    widen_scale=None) -> (grads, metrics)``, the outer gradient (FOMAML's,
-    or MAML's with ``cfg.first_order`` false): the gradient of
-    ``make_meta_loss``'s loss, accumulated in fp32 one task at a time so
-    that one task's graph is alive at once.
+    widen_scale=None, group=None, task_offset=0) -> (grads, metrics)``, the
+    outer gradient (FOMAML's, or MAML's with ``cfg.first_order`` false): the
+    gradient of ``make_meta_loss``'s loss, accumulated in fp32 one task at a
+    time so that one task's graph is alive at once.
     ``meta_batch = {"support": {...}, "query": {...}}`` with a leading task
-    axis; ``grads`` has the structure and dtypes of ``params``."""
+    axis; ``grads`` has the structure and dtypes of ``params``. Under a
+    process ``group`` the batch holds this rank's rows, the first of them
+    global task ``task_offset``, and ``grads`` and ``metrics`` cover the
+    tasks of every rank."""
     inner_adapt = make_inner_adapt(loss_fn, cfg, train=True)
     dtype = _grad_dtype(cfg)
 
     def grad_fn(params, meta_batch, seed: int, inner_scale=None,
-                widen_scale=None):
+                widen_scale=None, group=None, task_offset: int = 0):
         work = _leaf_copies(params, dtype, requires_grad=True)
         leaves = flatten(work)
         keys = [k for k, v in leaves.items() if v.requires_grad]
         acc = {k: torch.zeros_like(leaves[k], dtype=torch.float32)
                for k in keys}
-        m_tasks = _num_tasks(meta_batch)
+        m_tasks = _num_tasks(meta_batch) * world_size(group)
         q_losses, s_losses = [], []
         for q_loss, s_loss in _task_losses(loss_fn, inner_adapt,
                                            preprocess_fn, work, meta_batch,
-                                           seed, inner_scale, widen_scale):
+                                           seed, inner_scale, widen_scale,
+                                           task_offset):
             gs = torch.autograd.grad(q_loss / m_tasks,
                                      [leaves[k] for k in keys],
                                      allow_unused=True)
@@ -300,14 +314,16 @@ def maml_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
                     acc[k] += g.float()
             q_losses.append(q_loss.detach())
             s_losses.append(s_loss)
+        q, s = torch.stack(q_losses), torch.stack(s_losses)
+        if group is not None:
+            acc, every = reduce_outer(acc, {"query": q, "support": s}, group)
+            q, s = every["query"], every["support"]
         flat_p = flatten(params)
         grads = unflatten_like(params, {
             k: (acc[k].to(flat_p[k].dtype) if k in acc
                 else torch.zeros_like(flat_p[k])) for k in flat_p})
-        q = torch.stack(q_losses)
         metrics = {"meta_loss": q.mean(), "query_loss_mean": q.mean(),
-                   "query_loss_max": q.max(),
-                   "support_loss_mean": torch.stack(s_losses).mean()}
+                   "query_loss_max": q.max(), "support_loss_mean": s.mean()}
         return grads, metrics
 
     return grad_fn
@@ -318,19 +334,23 @@ def reptile_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
     """Reptile (Nichol et al. 2018) in ``maml_grads``'s shape: per task, the
     inner steps run on support and query concatenated, and the outer
     "gradient" is the mean over tasks of ``params - adapted``. No query
-    backward. The last inner-step loss is reported under the query keys."""
+    backward. The last inner-step loss is reported under the query keys.
+    ``group`` and ``task_offset`` as in ``maml_grads``: under a group the
+    ranks' deltas are summed in fp32 across processes and the mean, rounded
+    to the deltas' dtype as one process's mean is, covers every rank's
+    tasks."""
     inner_adapt = make_inner_adapt(loss_fn, cfg, train=True)
     dtype = _grad_dtype(cfg)
 
     def grad_fn(params, meta_batch, seed: int, inner_scale=None,
-                widen_scale=None):
+                widen_scale=None, group=None, task_offset: int = 0):
         del inner_scale, widen_scale   # rejected for Reptile by algo_config
         work = _leaf_copies(params, dtype, requires_grad=False)
         m_tasks = _num_tasks(meta_batch)
         dev = _device(meta_batch["support"])
         deltas, first, last = [], [], []
         for m in range(m_tasks):
-            task_seed = fold_in(seed, m)
+            task_seed = fold_in(seed, task_offset + m)
             support, query = _preprocess(
                 preprocess_fn, _task(meta_batch["support"], m),
                 _task(meta_batch["query"], m), task_seed, dev)
@@ -342,14 +362,24 @@ def reptile_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
             first.append(losses[0])
             last.append(losses[-1])
         flat_p = flatten(params)
-        grads = unflatten_like(params, {
-            k: torch.stack([d[k] for d in deltas]).mean(0).to(flat_p[k].dtype)
-            for k in flat_p})
-        last_t = torch.stack(last)
+        first_t, last_t = torch.stack(first), torch.stack(last)
+        if group is None:
+            mean = {k: torch.stack([d[k] for d in deltas]).mean(0)
+                    for k in flat_p}
+        else:
+            acc = {k: sum(d[k].float() for d in deltas) for k in flat_p}
+            acc, every = reduce_outer(acc, {"first": first_t,
+                                            "last": last_t}, group)
+            m_all = m_tasks * world_size(group)
+            mean = {k: (acc[k] / m_all).to(deltas[0][k].dtype)
+                    for k in flat_p}
+            first_t, last_t = every["first"], every["last"]
+        grads = unflatten_like(params, {k: mean[k].to(flat_p[k].dtype)
+                                        for k in flat_p})
         metrics = {"meta_loss": last_t.mean(),
                    "query_loss_mean": last_t.mean(),
                    "query_loss_max": last_t.max(),
-                   "support_loss_mean": torch.stack(first).mean()}
+                   "support_loss_mean": first_t.mean()}
         return grads, metrics
 
     return grad_fn

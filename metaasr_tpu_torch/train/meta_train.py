@@ -36,9 +36,20 @@ collates the training corpus once at the caps onto the trainer's device;
 each step then copies only its [M, ks + kq] utterance indices and gathers
 support and query there, each key cut to the step's bucket first. Otherwise
 (``off``, or ``auto`` over the budget) a producer thread reads and collates
-each step's utterances, and the main thread copies them to the device. Not
-in this slice (ROADMAP.md): the mesh paths. The baseline trainers with
-their dev evaluation are in ``train/mono.py``.
+each step's utterances, and the main thread copies them to the device.
+
+Data parallel over tasks (``group``, from ``parallel.initialize``): each of
+W processes holds the whole state, collates its M / W task rows of every
+step (``parallel.task_rows``; the draw and the bucket shape stay global)
+from the streaming feed (no resident store under a group, as the
+reference has none under a mesh), and ``maml_grads`` / ``reptile_grads``
+sum the outer gradient across processes once a step, so every rank takes
+the same Adam update and the state stays replicated. Only rank 0 writes
+checkpoints and metric logs, and only rank 0 runs ``eval_heldout``: its
+scores are broadcast, so every rank takes the same best, stale and
+early-stop decision. A group's run cannot resume yet (rank 0 restoring a
+checkpoint raises); the CLI's ``--mesh-tasks`` is refused. The baseline
+trainers with their dev evaluation are in ``train/mono.py``.
 """
 
 from __future__ import annotations
@@ -76,6 +87,12 @@ from metaasr_tpu_torch.meta.maml import (
     wrap_lr,
 )
 from metaasr_tpu_torch.models.lm import lm_from_flax
+from metaasr_tpu_torch.parallel.distributed import (
+    barrier,
+    from_rank0,
+    rank,
+    task_rows,
+)
 from metaasr_tpu_torch.serve.export import (
     beam_config_from_train,
     decode_features,
@@ -145,7 +162,7 @@ def to_device(batch: dict, device) -> dict:
 class MetaASRTrainer:
     def __init__(self, cfg: Config, task, accent_datasets: dict,
                  heldout_datasets: dict, tokenizer, workdir: str,
-                 device=None):
+                 device=None, group=None):
         self.device = resolve_device(device)
         if task.device != self.device:
             raise ValueError(f"task runs on {task.device}, trainer on "
@@ -161,10 +178,16 @@ class MetaASRTrainer:
             # so the BLSTM switches to the autograd loop.
             task.require_full_autodiff()
         self.optimizer = make_optimizer(cfg.optimizer, cfg.model.d_model)
-        self.ckpt = CheckpointManager(f"{workdir}/ckpts",
-                                      keep=cfg.train.keep_ckpts)
-        self.logger = MetricLogger(f"{workdir}/logs",
-                                   print_every=cfg.train.log_every)
+        # under a process group the rank's task rows; only rank 0 writes
+        self.group = group
+        self.rows = task_rows(cfg.meta.tasks_per_batch, group)
+        self.rank0 = rank(group) == 0
+        self.ckpt = self.logger = None
+        if self.rank0:
+            self.ckpt = CheckpointManager(f"{workdir}/ckpts",
+                                          keep=cfg.train.keep_ckpts)
+            self.logger = MetricLogger(f"{workdir}/logs",
+                                       print_every=cfg.train.log_every)
         m, d = cfg.meta, cfg.data
         cap = self._num_samples_cap()
         s_buckets, u_buckets = (), ()
@@ -221,7 +244,8 @@ class MetaASRTrainer:
         grads, metrics = self._grad_fn(
             state["params"], meta_batch, fold_in(state["seed"], step),
             inner_scale=self._inner_scale(step),
-            widen_scale=self._widen_scale(step))
+            widen_scale=self._widen_scale(step), group=self.group,
+            task_offset=self.rows.start)
         updates, opt_state = self.optimizer.update(grads, state["opt_state"],
                                                    state["params"])
         params = apply_updates(state["params"], updates)
@@ -230,15 +254,16 @@ class MetaASRTrainer:
                     step=step + 1), metrics
 
     def _batch_feed(self, start_step: int, max_steps: int):
-        """Meta-batches for steps [start_step, max_steps): a producer thread
-        reads and collates the next ones (a pure function of (seed, step))
-        while the device runs the current step; the copy to the device
-        happens on the main thread."""
+        """Meta-batches for steps [start_step, max_steps) (this rank's task
+        rows): a producer thread reads and collates the next ones (a pure
+        function of (seed, step)) while the device runs the current step;
+        the copy to the device, like every collective, happens on the main
+        thread."""
         q: queue.Queue = queue.Queue(maxsize=2)
 
         def produce():
             for step in range(start_step, max_steps):
-                q.put(self.sampler.sample(step))
+                q.put(self.sampler.sample(step, rows=self.rows))
             q.put(None)
 
         threading.Thread(target=produce, daemon=True).start()
@@ -250,12 +275,14 @@ class MetaASRTrainer:
     def _setup_resident(self) -> None:
         """Place the training corpus on the device once, as ``data.resident``
         says: ``off`` never, ``on`` always, ``auto`` when its reckoned size
-        is within ``resident_max_gb``. Lazy, so adapt- and test-only
-        sessions read no corpus; a store that cannot be built or placed
-        raises."""
+        is within ``resident_max_gb``; never under a process group, whose
+        ranks stream their own rows. Lazy, so adapt- and test-only sessions
+        read no corpus; a store that cannot be built or placed raises."""
         if self._resident_ready:
             return
         self._resident_ready = True
+        if self.group is not None:
+            return
         d = self.cfg.data
         # YAML reads an unquoted on / off as a boolean
         mode = ({True: "on", False: "off"}[d.resident]
@@ -324,9 +351,17 @@ class MetaASRTrainer:
                 "this trainer was built adapt-only")
         cfg = self.cfg.train
         max_steps = max_steps or cfg.max_steps
-        state, _ = self.ckpt.restore(self.init_state(),
-                                     map_location=self.device)
+        state = self.init_state()
+        if self.rank0:
+            state, _ = self.ckpt.restore(state, map_location=self.device)
+        if self.group is not None:
+            start = from_rank0(state["step"], self.group)
+            if start:
+                raise RuntimeError(
+                    "a multi-process run cannot resume yet: rank 0 restored "
+                    f"step {start}; start it in a fresh workdir")
         m = self.cfg.meta
+        # every rank's tasks: the group's rate, as one process counts it
         per_step = m.tasks_per_batch * (m.k_support * m.inner_steps
                                         + m.k_query)
         step = state["step"]
@@ -336,29 +371,40 @@ class MetaASRTrainer:
             state, metrics = self.step(state, batch)
             utts += per_step
             step += 1
-            if step % cfg.log_every == 0:
+            if step % cfg.log_every == 0 and self.rank0:
                 out = {k: float(v) for k, v in metrics.items()}
                 out["utts_per_sec"] = utts / max(time.time() - t0, 1e-6)
                 self.logger.log(step, out)
                 t0, utts = time.time(), 0
             if (cfg.eval_every > 0 and step % cfg.eval_every == 0
                     and self.heldout_datasets):
-                scores = self.eval_heldout(state["params"])
-                self.logger.log(step, scores)
+                scores = from_rank0(self.eval_heldout(state["params"])
+                                    if self.rank0 else None, self.group)
+                self._log(step, scores)
                 cur = scores["heldout_wer_mean"]
                 is_best = cur < state["best_metric"]
                 stale = 0 if is_best else state["stale_evals"] + 1
                 state = dict(state, stale_evals=stale,
                              best_metric=min(cur, state["best_metric"]))
-                self.ckpt.save(step, state, scores, is_best=is_best)
+                self._save(step, state, scores, is_best=is_best)
                 if cfg.early_stop_patience and \
                         stale >= cfg.early_stop_patience:
-                    self.logger.log(step, {"early_stop": 1.0})
+                    self._log(step, {"early_stop": 1.0})
                     break
             elif step % cfg.ckpt_every == 0:
-                self.ckpt.save(step, state)
-        self.ckpt.save(state["step"], state)
+                self._save(step, state)
+        self._save(state["step"], state)
         return state
+
+    def _log(self, step: int, scalars: dict) -> None:
+        if self.rank0:
+            self.logger.log(step, scalars)
+
+    def _save(self, step: int, state: dict, *args, **kwargs) -> None:
+        """Rank 0 writes the checkpoint; every rank then waits for it."""
+        if self.rank0:
+            self.ckpt.save(step, state, *args, **kwargs)
+        barrier(self.group)
 
     def meta_adapt(self, params: dict, accent_dataset,
                    adapt_steps: int | None = None,

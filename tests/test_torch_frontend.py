@@ -189,7 +189,8 @@ def test_port_imports_neither_jax_nor_reference_package():
         "          'scripts.sweep_throughput', 'serve', 'scripts.decode_bench',\n"
         "          'scripts.serve_bench', 'scripts.batcher_bench',\n"
         "          'scripts.flagship_results', 'scripts.demo_meta_adaptation',\n"
-        "          'scripts.kshot_curve', 'data.grain_loader'):\n"
+        "          'scripts.kshot_curve', 'data.grain_loader', 'parallel',\n"
+        "          'parallel.distributed'):\n"
         "    assert 'metaasr_tpu_torch.' + m in mods, mods\n"
         "from metaasr_tpu_torch.ops import _build\n"
         "assert not _build._libs, sorted(_build._libs)\n")
