@@ -239,7 +239,7 @@ Phases, one JSON line each; any failure exits non-zero:
              (two, so that one batch is in flight when the next is
              dispatched);
              ``batcher_bench.main`` at 0.5x serve_bench's pipelined rate,
-             a 3 s leg, 2 lone requests at idle (``--idle-requests 2``),
+             a 2 s leg, 2 lone requests at idle (``--idle-requests 2``),
              all in this process. Exactly
              0 K1/K2/K2b/K3/K3b launches in this process (features in, the
              LM's search step plain PyTorch), every hypothesis 48 tokens
@@ -265,7 +265,7 @@ Phases, one JSON line each; any failure exits non-zero:
              corpus, workdir and output: both markdown rows, every WER
              finite, and the exact K1/K2 launches of each call of
              ``meta_train``, ``train``, ``meta_adapt`` and ``decode``. (c)
-             ``kshot_curve.main --ks 0,1,5 --draws 2 --max-utts 16`` over a
+             ``kshot_curve.main --ks 0,5 --draws 2 --max-utts 16`` over a
              ``fomaml`` and a ``multi`` workdir trained 2 steps each under
              the flagship recipe at config3 width: both restore step 2,
              the reference's JSON layout, every WER finite, exact launches
@@ -327,15 +327,15 @@ Phases, one JSON line each; any failure exits non-zero:
              own buckets put every draw of this corpus in one shape):
              ``auto`` under the 4 GB budget places the store, whose tensors
              hold exactly ``resident_store_bytes``' 2,871,344,000 bytes;
-             steps 0-2's gathered batches equal ``to_device(sampler.sample(
-             step))`` key for key (``torch.equal``, contiguous), in at
-             least two bucket shapes; a 3-step resident ``meta_train`` and
-             a 3-step ``resident: off`` one from the same seed each launch
-             exactly 24 K1 and 48 K2 (0 K2b), only the second opens a
-             streaming feed, and their logged ``meta_loss`` agree within
-             1e-4 relative; ``auto`` with ``resident_max_gb: 2`` builds no
+             steps 0-1's gathered batches equal ``to_device(sampler.sample(
+             step))`` key for key (``torch.equal``, contiguous), in two
+             bucket shapes; a 2-step resident ``meta_train`` and a 2-step
+             ``resident: off`` one from the same seed each launch exactly
+             16 K1 and 32 K2 (0 K2b), only the second opens a streaming
+             feed, and their logged ``meta_loss`` agree within 1e-4
+             relative; ``auto`` with ``resident_max_gb: 2`` builds no
              store, and the feed ``meta_train`` takes opens the streaming
-             feed and gives the streaming batch. The two 3-step runs use
+             feed and gives the streaming batch. The two runs use
              deterministic algorithms: by default two runs of one feed
              part by up to 9.5e-4 at step 3. The corpus is written by a
              spawned process that starts before phase 1. Printed, not gated: the
@@ -365,30 +365,42 @@ Phases, one JSON line each; any failure exits non-zero:
              blocks with 0 and 2 workers, peak memory, the phase's seconds
              beside its budget (25 s).
 27. data_parallel — the task-axis data-parallel meta-step at config3
-             width and depth (``config3_train()`` through
-             ``cli.make_trainer``, 4 x (4 + 4), 3 inner steps, bf16,
-             SpecAugment on, the streaming feed) on 4 synthetic accents x
-             16 utterances (``tango`` held out), 2 ``meta_train`` steps a
-             run under deterministic algorithms: (1) a group of one over
-             NCCL (``parallel.initialize(world_size=1, rank=0,
-             backend="nccl")``, in this process) against no group: equal
-             parameters (``torch.equal``), equal logged ``meta_loss`` and
-             ``grad_norm``, exactly 16 K1 and 32 K2 each and 2 gradient
-             all-reduces; (2) two gloo ranks on the one card, each a
-             ``--dp-worker`` subprocess of this script running 2 of the 4
-             tasks, against the one-process run: step 1's ``meta_loss``
-             within 1e-6 and ``grad_norm`` within 1e-5 relative, step 2's
-             ``meta_loss`` within 1e-4, the ranks' parameters equal and
-             within 1e-5 of one process's, exactly 8 K1 and 16 K2 a rank,
-             checkpoints and logs only in rank 0's workdir, no resident
-             store. The ranks start before phase 26, so that their
-             start-up overlaps it, run one throwaway local meta-gradient
-             (their first-call costs) and wait until the one-process runs
-             are done. Printed, not gated: ms a step of each run from its
-             logged rates, the all-reduce's bytes and ms (NCCL with one
-             rank; gloo between the two), peak memory a rank, each rank's
-             stages in seconds from the go, the phase's seconds beside its
-             budget (30 s).
+             width and depth through the CLI (``cli.main --mode train``
+             on ``config3_train()`` recorded as a YAML file, 4 x (4 + 4),
+             3 inner steps, bf16, SpecAugment on, the streaming feed) on 4
+             synthetic accents x 16 utterances (``tango`` held out), 2
+             steps a run under deterministic algorithms: (1)
+             ``--mesh-tasks 1`` in a group of one over NCCL
+             (``parallel.initialize(world_size=1, rank=0,
+             backend="nccl")`` first, in this process) against no flag:
+             equal parameters (``torch.equal``), equal logged
+             ``meta_loss`` and ``grad_norm``, exactly 16 K1 and 32 K2 each
+             and 2 gradient all-reduces; the one-process run is then
+             resumed by 1 step in a second ``cli.main`` (8 K1, 16 K2);
+             (2) ``--mesh-tasks 2`` on two gloo ranks on the one card,
+             each a ``--dp-worker`` subprocess of this script running 2 of
+             the 4 tasks, against the one-process run: step 1's
+             ``meta_loss`` within 1e-6 and ``grad_norm`` within 1e-5
+             relative, step 2's ``meta_loss`` within 1e-4, the ranks'
+             parameters equal and within 1e-5 of one process's, exactly 8
+             K1 and 16 K2 a rank; (3) a fresh gloo pair resumes rank 0's
+             workdir by 1 step (no ``--config``: rank 0 reads the
+             recorded one): each rank holds rank 0's step-2 checkpoint bit
+             for bit right after its one ``broadcast_state``, step 3's
+             ``meta_loss`` within 1e-4 of the resumed one process's, the
+             ranks' parameters equal and within 1e-5 of its, exactly 4 K1
+             and 8 K2 and 1 all-reduce a rank. Rank 1 has a workdir of its
+             own in each pair, which it never creates; rank 0's holds
+             ``config.yaml``, ``ckpts/`` and ``logs/``; no resident store.
+             Both pairs start before phase 26, so that their start-up
+             overlaps it, run one throwaway local meta-gradient (their
+             first-call costs) and wait for their go. Printed, not gated:
+             ms a step of each run from its logged rates, the
+             all-reduce's bytes and ms (NCCL with one rank; gloo between
+             the two), ``broadcast_state``'s bytes and ms (NCCL with one
+             rank; each resumed gloo rank), peak memory a rank, each
+             rank's stages in seconds from its go, the phase's seconds
+             beside its budget (45 s).
 
 Then a line of the held-out WERs of phases 13, 14 and 19 (random init: a
 trend), a ``phase_seconds`` line with their sum, phase 21's B 16 decode
@@ -405,8 +417,8 @@ off only where the card is held against a plain version or the CPU
 12, phase 18's kernels at the LM's shape, LM parity and cuda/cpu serving,
 and phase 19's cuda/cpu serving), through ``strict_fp32``.
 
-Four more modes, each needing one card (and ``--dp-worker RANK DIR``,
-phase 27's rank processes, which ``start_data_parallel`` starts):
+Four more modes, each needing one card (and ``--dp-worker RANK DIR
+a|b``, phase 27's rank processes, which ``start_data_parallel`` starts):
 
     python3 chip_smoke.py --precision-ab    # phases 9, 10 under the policy,
                                             # then under strict fp32
@@ -3534,7 +3546,7 @@ PIPELINED_BATCHES = 2       # measure_pipelined's (8); two, so a batch is in
                             # flight when the next is dispatched
 BENCH_PASSES = 1            # timed passes of each reading (default 3)
 BATCHER_LOADS = (0.5,)  # offered loads, x serve_bench's pipelined rate
-BATCHER_SECS = 3
+BATCHER_SECS = 2
 BATCHER_IDLE_REQUESTS = 2   # lone requests at idle (default 10)
 SERVING_BENCHES_BUDGET_S = 150
 
@@ -3613,7 +3625,7 @@ CONFIG2_STEPS = 8           # train.max_steps of config2's CLI run
 DEMO_STEPS = 2              # demo_meta_adaptation --steps (default 800)
 DEMO_UTTS = 24              # its --utts-per-accent (default 192)
 KSHOT_TRAIN_STEPS = 2       # steps of each workdir kshot_curve restores
-KSHOT_KS = (0, 1, 5)
+KSHOT_KS = (0, 5)           # a zero-shot point and an adapted one
 KSHOT_DRAWS = 2
 KSHOT_MAX_UTTS = 16
 QUALITY_BUDGET_S = 150
@@ -4440,7 +4452,7 @@ def fusion_paths(fusion, k) -> dict:
 # ------------------------------------------- the device-resident corpus ----
 
 RESIDENT_UTTS = 400         # utterances an accent: 7 training accents, 2,800
-RESIDENT_STEPS = 3
+RESIDENT_STEPS = 2          # steps 0 and 1 fall in two buckets
 # config3's default buckets put every draw of this corpus (0.5-1.9 s
 # utterances) in (41,200, 32); 16-frame buckets under 256 split the draws.
 # The caps, and so the store, stay config3's.
@@ -4598,7 +4610,8 @@ def phase_resident_corpus(torch, smi, corpus=None):
         if not batch_ok:
             raise SystemExit("a gathered batch differs from the streaming one")
         if len({tuple(s) for s in shapes.values()}) < 2:
-            raise SystemExit(f"steps 0-2 share one bucket: {shapes}")
+            raise SystemExit(f"steps 0-{RESIDENT_STEPS - 1} share one "
+                             f"bucket: {shapes}")
 
         # gate 3: resident against streaming, one seed, exact launches.
         # Deterministic algorithms: by default two runs of one feed part
@@ -4914,69 +4927,89 @@ def grain_paths(grain, k) -> dict:
 
 DP_ACCENTS = ("alpha", "bravo", "echo", "delta", "tango")  # tango held out
 DP_UTTS = 16                # utterances an accent
-DP_STEPS = 2
+DP_STEPS = 2                # the first pair's run; the fresh pair resumes it
+DP_RESUME_STEPS = 1         # by this many steps
 DP_WORLD = 2                # gloo ranks on the one card
-DP_LOSS_RTOL = (1e-6, 1e-4)  # step 1's and step 2's meta_loss
+DP_LOSS_RTOL = (1e-6, 1e-4)  # step 1's meta_loss, later steps'
 DP_NORM_RTOL = 1e-5         # step 1's grad_norm: a wrong 1 / M doubles it
 DP_PARAM_ATOL = 1e-5
 DP_TIMEOUT_S = 120          # the rendezvous and every collective
-DP_BUDGET_S = 30
+DP_BUDGET_S = 45
 
 
-def dp_trainer(data: str, workdir: str, group):
-    """``make_trainer`` on config3_train() over phase 27's corpus: the
-    streaming feed (a group has no resident store), a log line a step, a
-    checkpoint at the end only."""
-    from metaasr_tpu_torch.cli import make_trainer
-
+def dp_config(data: str):
+    """config3_train() over phase 27's corpus: the streaming feed (a group
+    has no resident store), a log line a step, a checkpoint at the end
+    only."""
     cfg = config3_train()[0]
     cfg.data.data_dir, cfg.data.heldout_accents = data, ("tango",)
     cfg.data.resident = "off"
     cfg.train.log_every, cfg.train.ckpt_every = 1, 10 ** 6
-    return make_trainer(cfg, workdir, DEVICE, group)[0]
+    return cfg
 
 
-def dp_train(torch, tr, workdir: str) -> dict:
-    """``tr.meta_train(max_steps=DP_STEPS)`` from zeroed counts under
-    deterministic algorithms -> final parameters (on the cpu), launches,
-    gradient all-reduces, logged records, ms a step from them, peak
+@contextlib.contextmanager
+def captured_meta_train():
+    """Record (trainer, final state) of every ``meta_train`` call."""
+    from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
+
+    seen, plain = [], MetaASRTrainer.meta_train
+
+    def spy(self, *args, **kwargs):
+        state = plain(self, *args, **kwargs)
+        seen.append((self, state))
+        return state
+
+    MetaASRTrainer.meta_train = spy
+    try:
+        yield seen
+    finally:
+        MetaASRTrainer.meta_train = plain
+
+
+def dp_cli(torch, argv, workdir: str) -> dict:
+    """``cli.main(argv)`` (a ``--mode train`` run) from zeroed counts under
+    deterministic algorithms -> final parameters (on the cpu) and state,
+    launches, gradient all-reduces, state broadcasts, the records logged
+    in ``workdir`` (rank 0's, earlier runs' too), ms a step from them, peak
     memory, the store, the workdir's entries."""
-    from metaasr_tpu_torch.parallel import reduce_outer
+    from metaasr_tpu_torch.parallel import broadcast_state, reduce_outer
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         zero_counts()
-        reduce_outer.all_reduces = 0
-        t0 = time.perf_counter()
-        state = tr.meta_train(max_steps=DP_STEPS)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
+        reduce_outer.all_reduces = broadcast_state.calls = 0
+        with captured_meta_train() as seen:
+            _, seconds = run_cli(argv)
         counts = all_counts()
     finally:
         torch.use_deterministic_algorithms(False)
+    (tr, state), = seen
     logs = os.path.join(workdir, "logs", "scalars.jsonl")
     recs = []
     if os.path.exists(logs):
         with open(logs) as f:
-            recs = [json.loads(line) for line in f]
+            recs = [r for r in map(json.loads, f) if "meta_loss" in r]
     m = tr.cfg.meta
     per_step = m.tasks_per_batch * (m.k_support * m.inner_steps + m.k_query)
     return {"params": {k: v.detach().cpu() for k, v in state["params"].items()},
-            "step": state["step"], "launches": counts,
-            "all_reduces": reduce_outer.all_reduces, "records": recs,
+            "state": state, "step": state["step"], "launches": counts,
+            "all_reduces": reduce_outer.all_reduces,
+            "broadcasts": broadcast_state.calls, "records": recs,
             "ms_per_step_logged": [1e3 * per_step / r["utts_per_sec"]
                                    for r in recs],
-            "meta_train_s": seconds, "rows": [tr.rows.start, tr.rows.stop],
-            "store": tr._store is not None,
+            "cli_s": seconds, "rows": [tr.rows.start, tr.rows.stop],
+            "device": str(tr.device), "store": tr._store is not None,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "workdir": ({e: sorted(os.listdir(os.path.join(workdir, e)))
+                         if os.path.isdir(os.path.join(workdir, e)) else []
                          for e in sorted(os.listdir(workdir))}
                         if os.path.isdir(workdir) else {})}
 
 
-def allreduce_ms(torch, n: int, group, runs: int = 5) -> float:
+def allreduce_ms(torch, n: int, group, runs: int = 3) -> float:
     """Median ms of one fp32 sum all-reduce of ``n`` elements on the card,
     the ranks released together by a barrier (after one unmeasured)."""
     import torch.distributed as dist
@@ -4995,54 +5028,129 @@ def allreduce_ms(torch, n: int, group, runs: int = 5) -> float:
     return statistics.median(times[1:])
 
 
-def dp_worker(rank: int, d: str) -> int:
-    """``--dp-worker RANK DIR``: one of phase 27's gloo ranks on the card.
-    Joins the group, builds its trainer on ``DIR/data``, waits for
-    ``DIR/go`` (the parent's one-process runs come first), trains and
-    writes ``DIR/rank<RANK>.pt`` with the wall-clock times of each stage.
+def state_bytes(state: dict) -> int:
+    from metaasr_tpu_torch.utils.tree import flatten
+
+    return sum(v.numel() * v.element_size()
+               for v in flatten(state).values() if hasattr(v, "numel"))
+
+
+def broadcast_ms(torch, state: dict, group, runs: int = 3) -> dict:
+    """``broadcast_state`` of ``state`` in ``group`` (a group of one here):
+    its bytes and the median ms of ``runs`` calls after one unmeasured."""
+    from metaasr_tpu_torch.parallel import broadcast_state
+
+    times = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        broadcast_state(state, group)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return {"bytes": state_bytes(state), "ms": statistics.median(times[1:])}
+
+
+def checked_broadcast(torch, ckpt: str, record: dict):
+    """A ``broadcast_state`` that times itself and holds what the rank
+    holds right after it against rank 0's checkpoint ``ckpt``, bit for
+    bit, into ``record``."""
+    from metaasr_tpu_torch.parallel import broadcast_state
+    from metaasr_tpu_torch.utils.tree import flatten
+
+    def broadcast(state, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = broadcast_state(state, group)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = flatten(state)
+        want = flatten(torch.load(ckpt, map_location=DEVICE,
+                                  weights_only=True))
+        equal = got.keys() == want.keys() and all(
+            torch.equal(got[k], w) and got[k].dtype == w.dtype
+            if torch.is_tensor(w) else type(got[k]) is type(w)
+            and got[k] == w for k, w in want.items())
+        record.update(ms=ms, bytes=state_bytes(state), equal=equal,
+                      step=state["step"], leaves=len(want))
+        return state
+
+    return broadcast
+
+
+def dp_worker(rank: int, d: str, pair: str) -> int:
+    """``--dp-worker RANK DIR a|b``: one of phase 27's gloo ranks on the
+    card. Joins its pair's group, warms up on a throwaway trainer, waits
+    for ``DIR/go_<pair>``, then runs the CLI: pair ``a`` trains
+    ``DP_STEPS`` steps from ``DIR/dp_config.yaml``, pair ``b`` (fresh
+    processes) resumes rank 0's workdir by ``DP_RESUME_STEPS``; rank 1 has
+    a workdir of its own, which it must never create. Writes
+    ``DIR/<pair>_rank<RANK>.pt`` with the wall-clock times of each stage.
     Returns 3 if the parent goes away first."""
     stamps = {"started": time.time()}
+    import gc
+
     import torch
     import torch.distributed as dist
 
+    from metaasr_tpu_torch.cli import make_trainer
+    from metaasr_tpu_torch.config import load_config
     from metaasr_tpu_torch.device import resolve_device
     from metaasr_tpu_torch.parallel import initialize
+    from metaasr_tpu_torch.scripts.multihost_trainer_smoke import train_argv
+    from metaasr_tpu_torch.train import meta_train
 
     resolve_device(DEVICE)
     torch.zeros(1, device=DEVICE)
     # its first call imports torch._dynamo and FSDP (seconds): not after
-    # the go. dp_train sets it again around meta_train.
+    # the go. dp_cli sets it again around the run.
     torch.use_deterministic_algorithms(True, warn_only=True)
     stamps["cuda_ready"] = time.time()
-    group = initialize(init_method=f"file://{d}/rdzv_gloo",
+    group = initialize(init_method=f"file://{d}/rdzv_gloo_{pair}",
                        world_size=DP_WORLD, rank=rank, backend="gloo",
                        device=DEVICE, timeout=DP_TIMEOUT_S)
     stamps["group_ready"] = time.time()
     try:
-        workdir = os.path.join(d, f"wd_rank{rank}")
-        tr = dp_trainer(os.path.join(d, "data"), workdir, group)
-        stamps["trainer_built"] = time.time()
+        config = os.path.join(d, "dp_config.yaml")
         # before the go, a throwaway local meta-gradient on step 0's rows
         # (no collective, no update): the process's first-call costs
         # (CUDA modules, cuBLAS, the kernels' libraries) stay off the
         # measured steps, as in the parent, which has run steps before
+        tr = make_trainer(load_config(config),
+                          os.path.join(d, f"warm_{pair}{rank}"), DEVICE,
+                          group)[0]
         tr._grad_fn(tr.init_state()["params"], next(tr._feed(0, 1)), 0)
         torch.cuda.synchronize()
+        del tr
+        gc.collect()
         stamps["warmed_up"] = time.time()
         parent, deadline = os.getppid(), time.monotonic() + 1800
-        while not os.path.exists(os.path.join(d, "go")):
+        while not os.path.exists(os.path.join(d, f"go_{pair}")):
             if os.getppid() != parent or time.monotonic() > deadline:
                 return 3
             time.sleep(0.02)
         stamps["go_seen"] = time.time()
-        out = dp_train(torch, tr, workdir)
+        workdir = os.path.join(d, "wd_gloo" if rank == 0
+                               else f"wd_gloo_rank{rank}{pair}")
+        bcast = {}
+        if pair == "a":
+            argv = train_argv(config, workdir, DP_STEPS, DEVICE, DP_WORLD)
+        else:
+            argv = train_argv(None, workdir, DP_STEPS + DP_RESUME_STEPS,
+                              DEVICE, DP_WORLD)
+            meta_train.broadcast_state = checked_broadcast(
+                torch, os.path.join(d, "wd_gloo", "ckpts",
+                                    f"step_{DP_STEPS}.pt"), bcast)
+        out = dp_cli(torch, argv, workdir)
         stamps["trained"] = time.time()
-        n = sum(v.numel() for v in out["params"].values())
-        out["allreduce"] = {"bytes": 4 * n,
-                            "ms": allreduce_ms(torch, n, group)}
-        stamps["allreduce_timed"] = time.time()
+        out.pop("state")
+        out["broadcast_state"] = bcast
+        if pair == "a":
+            n = sum(v.numel() for v in out["params"].values())
+            out["allreduce"] = {"bytes": 4 * n,
+                                "ms": allreduce_ms(torch, n, group)}
+            stamps["allreduce_timed"] = time.time()
         out["stamps"] = stamps
-        path = os.path.join(d, f"rank{rank}.pt")
+        path = os.path.join(d, f"{pair}_rank{rank}.pt")
         torch.save(out, path + ".tmp")
         os.replace(path + ".tmp", path)   # whole, or not there
     finally:
@@ -5051,23 +5159,31 @@ def dp_worker(rank: int, d: str) -> int:
 
 
 def start_data_parallel():
-    """Phase 27's corpus and its two gloo ranks -> (TemporaryDirectory,
-    processes, log paths). ``main`` starts them before phase 26, so that
-    their start-up (interpreter, CUDA context, trainer) overlaps it; they
-    wait for the phase's go."""
+    """Phase 27's corpus, its config and its two gloo pairs -> (the
+    TemporaryDirectory, {pair: processes}, {pair: log paths}). ``main``
+    starts them before phase 26, so that their start-up (interpreter,
+    CUDA context, rendezvous, warm-up) overlaps it; each pair waits for
+    its go."""
+    from metaasr_tpu_torch.config import save_config
     from metaasr_tpu_torch.data.synthetic import generate_dataset
 
     tmp = tempfile.TemporaryDirectory()
-    generate_dataset(os.path.join(tmp.name, "data"), accents=DP_ACCENTS,
-                     utts_per_accent=DP_UTTS, words_per_utt=(2, 4), seed=0)
-    logs = [os.path.join(tmp.name, f"rank{r}.log") for r in range(DP_WORLD)]
-    procs = []
-    for r, path in enumerate(logs):
-        with open(path, "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--dp-worker",
-                 str(r), tmp.name], stdout=f, stderr=subprocess.STDOUT,
-                cwd=os.path.dirname(os.path.abspath(__file__))))
+    data = os.path.join(tmp.name, "data")
+    generate_dataset(data, accents=DP_ACCENTS, utts_per_accent=DP_UTTS,
+                     words_per_utt=(2, 4), seed=0)
+    save_config(dp_config(data), os.path.join(tmp.name, "dp_config.yaml"))
+    procs, logs = {}, {}
+    for pair in ("a", "b"):
+        logs[pair] = [os.path.join(tmp.name, f"{pair}_rank{r}.log")
+                      for r in range(DP_WORLD)]
+        procs[pair] = []
+        for r, path in enumerate(logs[pair]):
+            with open(path, "w") as f:
+                procs[pair].append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--dp-worker", str(r), tmp.name, pair], stdout=f,
+                    stderr=subprocess.STDOUT,
+                    cwd=os.path.dirname(os.path.abspath(__file__))))
     return tmp, procs, logs
 
 
@@ -5091,63 +5207,85 @@ def dp_wait(procs, logs, results, timeout: float) -> None:
 
 
 def phase_data_parallel(torch, smi, started=None):
-    """The task-axis data-parallel meta-step at config3 width: a group of
-    one over NCCL against no group (bit for bit), then two gloo ranks on
-    the one card, each running 2 of the 4 tasks, against the one-process
-    run; exact launches and all-reduces, rank-0-only writes. ``started``:
-    ``start_data_parallel()``'s result, else the ranks start here."""
+    """The task-axis data-parallel meta-step at config3 width through the
+    CLI: ``--mesh-tasks 1`` under a group of one over NCCL against no flag
+    (bit for bit), then ``--mesh-tasks 2`` on two gloo ranks on the one
+    card, each running 2 of the 4 tasks, against the one-process run, and
+    a fresh gloo pair resuming their run against the one process resumed
+    the same way; exact launches, all-reduces and broadcasts, rank-0-only
+    writes, the state each resumed rank holds against rank 0's checkpoint.
+    ``started``: ``start_data_parallel()``'s result, else the ranks start
+    here."""
     import torch.distributed as dist
 
     from metaasr_tpu_torch.parallel import initialize
+    from metaasr_tpu_torch.scripts.multihost_trainer_smoke import train_argv
 
     t_phase = time.perf_counter()
     m = config3_train()[0].meta
     per_rank = m.tasks_per_batch // DP_WORLD
-    want_one = kernel_counts(DP_STEPS * 2 * m.tasks_per_batch,
-                             DP_STEPS * m.tasks_per_batch
-                             * (m.inner_steps + 1))
-    want_rank = kernel_counts(DP_STEPS * 2 * per_rank,
-                              DP_STEPS * per_rank * (m.inner_steps + 1))
+
+    def want(steps, tasks):
+        return kernel_counts(steps * 2 * tasks,
+                             steps * tasks * (m.inner_steps + 1))
+
+    end = DP_STEPS + DP_RESUME_STEPS
     out = {"phase": "data_parallel", "card": smi, "world": DP_WORLD,
            "tasks": m.tasks_per_batch, "steps": DP_STEPS,
-           "accents": list(DP_ACCENTS), "utts_per_accent": DP_UTTS,
-           "deterministic_algorithms": True}
+           "resumed_steps": DP_RESUME_STEPS, "accents": list(DP_ACCENTS),
+           "utts_per_accent": DP_UTTS, "deterministic_algorithms": True}
     tmp, procs, logs = started or start_data_parallel()
+    every = [p for pair in procs.values() for p in pair]
     with tmp as d:
-        data = os.path.join(d, "data")
+        config = os.path.join(d, "dp_config.yaml")
         try:
-            # gate 1: a group of one over NCCL, then no group
+            # gate 1: --mesh-tasks 1 under a group of one over NCCL, then
+            # no flag (and its resume by DP_RESUME_STEPS)
             group = initialize(init_method=f"file://{d}/rdzv_nccl",
                                world_size=1, rank=0, backend="nccl",
                                timeout=DP_TIMEOUT_S)
             try:
                 wd = os.path.join(d, "wd_nccl")
-                nccl = dp_train(torch, dp_trainer(data, wd, group), wd)
+                nccl = dp_cli(torch, train_argv(config, wd, DP_STEPS, DEVICE,
+                                                1), wd)
                 n = sum(v.numel() for v in nccl["params"].values())
                 nccl["allreduce"] = {"bytes": 4 * n,
                                      "ms": allreduce_ms(torch, n, group)}
+                nccl["broadcast_state"] = broadcast_ms(torch, nccl.pop(
+                    "state"), group)
             finally:
                 dist.destroy_process_group()
             wd = os.path.join(d, "wd_one")
-            one = dp_train(torch, dp_trainer(data, wd, None), wd)
-            # gate 2: the two gloo ranks, waiting since they started
-            t0, go = time.perf_counter(), time.time()
-            open(os.path.join(d, "go"), "w").close()
-            results = [os.path.join(d, f"rank{r}.pt")
-                       for r in range(DP_WORLD)]
-            dp_wait(procs, logs, results, 600)
-            out["ranks_wait_s"] = time.perf_counter() - t0
-            ranks = [torch.load(f, weights_only=False) for f in results]
-            for p in procs:   # they exit on their own once written
+            one = dp_cli(torch, train_argv(config, wd, DP_STEPS, DEVICE), wd)
+            one_resumed = dp_cli(torch, train_argv(None, wd, end, DEVICE),
+                                 wd)
+            for run in (one, one_resumed):
+                run.pop("state")
+            # gates 2 and 3: the gloo pair, then the fresh pair resuming
+            # its run, each waiting since it started
+            ranks = {}
+            for pair in ("a", "b"):
+                t0, go = time.perf_counter(), time.time()
+                open(os.path.join(d, f"go_{pair}"), "w").close()
+                results = [os.path.join(d, f"{pair}_rank{r}.pt")
+                           for r in range(DP_WORLD)]
+                dp_wait(procs[pair], logs[pair], results, 600)
+                out[f"pair_{pair}_wait_s"] = time.perf_counter() - t0
+                ranks[pair] = [torch.load(f, weights_only=False)
+                               for f in results]
+                for r in ranks[pair]:
+                    r["stamps_s_from_go"] = {
+                        k: round(v - go, 3) for k, v in r["stamps"].items()}
+            for p in every:   # they exit on their own once written
                 p.wait(timeout=120)
             out["ranks_exit_s"] = time.perf_counter() - t0
         finally:
-            for p in procs:
+            for p in every:
                 if p.poll() is None:
                     p.kill()
                 p.wait()
-        codes = [p.returncode for p in procs]
-    if codes != [0] * DP_WORLD:
+        codes = [p.returncode for p in every]
+    if codes != [0] * len(every):
         raise SystemExit(f"data-parallel ranks exited {codes}")
 
     def rel(a, b):
@@ -5156,70 +5294,117 @@ def phase_data_parallel(torch, smi, started=None):
     def params_equal(a, b):
         return all(torch.equal(a[k], v) for k, v in b.items())
 
+    def worst(a, b):
+        return max(float((a[k] - v).abs().max()) for k, v in b.items())
+
+    def gaps(got, want_recs):
+        return {key: [rel(a[key], b[key]) for a, b in zip(got, want_recs)]
+                for key in ("meta_loss", "grad_norm")}
+
     def summary(run):
         return {k: run[k] for k in ("step", "launches", "all_reduces",
-                                    "rows", "store", "ms_per_step_logged",
-                                    "meta_train_s", "peak_mem_gb",
-                                    "workdir")} | {
+                                    "broadcasts", "rows", "device", "store",
+                                    "ms_per_step_logged", "cli_s",
+                                    "peak_mem_gb", "workdir")} | {
             "meta_loss": [r["meta_loss"] for r in run["records"]],
             "grad_norm": [r["grad_norm"] for r in run["records"]],
-            "allreduce": run.get("allreduce")}
+            "allreduce": run.get("allreduce"),
+            "broadcast_state": run.get("broadcast_state"),
+            "stamps_s_from_go": run.get("stamps_s_from_go")}
 
-    r0, r1 = ranks
-    worst_param = max(float((r0["params"][k] - v).abs().max())
-                      for k, v in one["params"].items())
-    gaps = {"meta_loss": [rel(a["meta_loss"], b["meta_loss"])
-                          for a, b in zip(r0["records"], one["records"])],
-            "grad_norm": [rel(a["grad_norm"], b["grad_norm"])
-                          for a, b in zip(r0["records"], one["records"])],
-            "param_max_abs": worst_param}
+    (r0, r1), (b0, b1) = ranks["a"], ranks["b"]
+    resumed = b0["records"][DP_STEPS:]       # rank 0's log: both pairs'
+    one_tail = one_resumed["records"][DP_STEPS:]
     out["group_of_one_nccl"] = summary(nccl)
     out["one_process"] = summary(one)
-    out["gloo_ranks"] = [summary(r) for r in ranks]
-    out["gloo_stamps_s_from_go"] = [
-        {k: round(v - go, 3) for k, v in r["stamps"].items()} for r in ranks]
-    out["gloo_vs_one_process"] = gaps
+    out["one_process_resumed"] = summary(one_resumed)
+    out["gloo_ranks"] = [summary(r) for r in (r0, r1)]
+    out["gloo_resumed_ranks"] = [summary(r) for r in (b0, b1)]
+    out["gloo_vs_one_process"] = gaps(r0["records"], one["records"]) | {
+        "param_max_abs": worst(r0["params"], one["params"])}
+    out["resumed_vs_one_process"] = gaps(resumed, one_tail) | {
+        "param_max_abs": worst(b0["params"], one_resumed["params"])}
     out["nccl_equal"] = {
         "params": params_equal(nccl["params"], one["params"]),
         "records": all(a[k] == b[k] for a, b in zip(nccl["records"],
                                                     one["records"])
                        for k in ("meta_loss", "grad_norm"))}
-    out["ranks_params_equal"] = params_equal(r0["params"], r1["params"])
+    out["ranks_params_equal"] = {
+        "gloo": params_equal(r0["params"], r1["params"]),
+        "resumed": params_equal(b0["params"], b1["params"])}
+    out["broadcast_state"] = {
+        "nccl_group_of_one": nccl["broadcast_state"],
+        **{f"gloo_rank{r}": x["broadcast_state"]
+           for r, x in enumerate((b0, b1))}}
     out["launches"] = {"dp_nccl_group_of_one": nccl["launches"],
                        "dp_one_process": one["launches"],
+                       "dp_one_process_resumed": one_resumed["launches"],
                        **{f"dp_gloo_rank{r}": x["launches"]
-                          for r, x in enumerate(ranks)}}
+                          for r, x in enumerate((r0, r1))},
+                       **{f"dp_gloo_resumed_rank{r}": x["launches"]
+                          for r, x in enumerate((b0, b1))}}
     out["seconds"] = time.perf_counter() - t_phase
     out["budget_s"] = DP_BUDGET_S
     log(out)
     if not (out["nccl_equal"]["params"] and out["nccl_equal"]["records"]
             and len(nccl["records"]) == len(one["records"]) == DP_STEPS):
-        raise SystemExit("the NCCL group of one differs from no group")
-    if nccl["all_reduces"] != DP_STEPS or one["all_reduces"] != 0:
-        raise SystemExit(f"all-reduces {nccl['all_reduces']} with the NCCL "
-                         f"group, {one['all_reduces']} without")
-    for name, run, want in (("nccl", nccl, want_one), ("one", one, want_one),
-                            ("rank0", r0, want_rank),
-                            ("rank1", r1, want_rank)):
-        if run["launches"] != want:
+        raise SystemExit("--mesh-tasks 1 in the NCCL group of one differs "
+                         "from no flag")
+    if (nccl["all_reduces"], one["all_reduces"], one_resumed["all_reduces"],
+            r0["all_reduces"], r1["all_reduces"], b0["all_reduces"],
+            b1["all_reduces"]) != (DP_STEPS, 0, 0, DP_STEPS, DP_STEPS,
+                                   DP_RESUME_STEPS, DP_RESUME_STEPS):
+        raise SystemExit("all-reduces a run: "
+                         f"{[x['all_reduces'] for x in (nccl, one, one_resumed, r0, r1, b0, b1)]}")
+    for name, run, counts in (
+            ("nccl", nccl, want(DP_STEPS, m.tasks_per_batch)),
+            ("one", one, want(DP_STEPS, m.tasks_per_batch)),
+            ("one resumed", one_resumed,
+             want(DP_RESUME_STEPS, m.tasks_per_batch)),
+            ("rank0", r0, want(DP_STEPS, per_rank)),
+            ("rank1", r1, want(DP_STEPS, per_rank)),
+            ("resumed rank0", b0, want(DP_RESUME_STEPS, per_rank)),
+            ("resumed rank1", b1, want(DP_RESUME_STEPS, per_rank))):
+        if run["launches"] != counts:
             raise SystemExit(f"{name} launches {run['launches']}, want "
-                             f"{want}")
+                             f"{counts}")
     if not (len(r0["records"]) == DP_STEPS and r1["records"] == []
-            and r0["all_reduces"] == r1["all_reduces"] == DP_STEPS):
-        raise SystemExit("rank 0 must log every step, rank 1 nothing")
-    if not (gaps["meta_loss"][0] <= DP_LOSS_RTOL[0]
-            and gaps["grad_norm"][0] <= DP_NORM_RTOL
-            and gaps["meta_loss"][1] <= DP_LOSS_RTOL[1]):
-        raise SystemExit(f"gloo ranks against one process: {gaps}")
-    if not (out["ranks_params_equal"] and worst_param <= DP_PARAM_ATOL):
+            and len(b0["records"]) == end and b1["records"] == []
+            and len(one_resumed["records"]) == end
+            and one_resumed["step"] == b0["step"] == b1["step"] == end):
+        raise SystemExit("rank 0 must log every step, rank 1 nothing, and "
+                         f"the resumed runs end at step {end}")
+    g = out["gloo_vs_one_process"]
+    if not (g["meta_loss"][0] <= DP_LOSS_RTOL[0]
+            and g["grad_norm"][0] <= DP_NORM_RTOL
+            and max(g["meta_loss"][1:]) <= DP_LOSS_RTOL[1]):
+        raise SystemExit(f"gloo ranks against one process: {g}")
+    if not (out["ranks_params_equal"]["gloo"]
+            and g["param_max_abs"] <= DP_PARAM_ATOL):
         raise SystemExit(f"ranks' parameters equal: "
                          f"{out['ranks_params_equal']}, from one process "
-                         f"{worst_param}")
-    if (sorted(r0["workdir"]) != ["ckpts", "logs"]
-            or not all(r0["workdir"].values()) or r1["workdir"]):
+                         f"{g['param_max_abs']}")
+    g = out["resumed_vs_one_process"]
+    if not (len(resumed) == len(one_tail) == DP_RESUME_STEPS
+            and max(g["meta_loss"]) <= DP_LOSS_RTOL[1]
+            and out["ranks_params_equal"]["resumed"]
+            and g["param_max_abs"] <= DP_PARAM_ATOL):
+        raise SystemExit(f"the resumed pair against one process resumed: "
+                         f"{g}, ranks' parameters equal "
+                         f"{out['ranks_params_equal']['resumed']}")
+    if not all(x["broadcasts"] == 1 and x["broadcast_state"]["equal"]
+               and x["broadcast_state"]["step"] == DP_STEPS
+               for x in (b0, b1)) or r0["broadcasts"] or one_resumed[
+                   "broadcasts"]:
+        raise SystemExit("each resumed rank must hold rank 0's checkpoint "
+                         "after one broadcast: "
+                         f"{[x['broadcast_state'] for x in (b0, b1)]}")
+    if (sorted(r0["workdir"]) != ["ckpts", "config.yaml", "logs"]
+            or not (r0["workdir"]["ckpts"] and r0["workdir"]["logs"])
+            or r1["workdir"] or b1["workdir"]):
         raise SystemExit(f"workdirs: rank 0 {r0['workdir']}, rank 1 "
-                         f"{r1['workdir']}")
-    if r0["store"] or r1["store"] or one["store"]:
+                         f"{r1['workdir']}, {b1['workdir']}")
+    if any(x["store"] for x in (r0, r1, b0, b1, one, one_resumed, nccl)):
         raise SystemExit("a resident store was built")
     return out
 
@@ -5695,8 +5880,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dp-worker"] and len(sys.argv) == 4:
-        code = dp_worker(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--dp-worker"] and len(sys.argv) == 5:
+        code = dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         sys.stdout.flush()
         os._exit(code)   # its results are written: skip the teardown
     if sys.argv[1:2] == ["--ctc-times"] and len(sys.argv) == 3:

@@ -13,6 +13,8 @@
         [--export-decode auto|beam|greedy] [--lm-ckpt LM.npz --lm-weight W]
     python -m metaasr_tpu_torch.cli --mode serve --bundle DIR \
         --wav a.wav [b.wav ...]
+    torchrun --nproc-per-node N -m metaasr_tpu_torch.cli --mode train \
+        --mesh-tasks N --config CFG --data-dir DIR --workdir WD [...]
 
 ``train`` (the default) trains on the accents of ``--data-dir``
 (``<accent>.jsonl`` manifests, e.g. from ``data.synthetic.generate_dataset``),
@@ -39,6 +41,13 @@ transcribes WAV files with a bundle: one the port wrote records its config;
 one the JAX package exported (``--mode export``) needs ``--config`` for the
 model dims, CMVN mode and beam options. Every mode runs on CUDA unless
 ``--device cpu`` is given.
+
+``--mesh-tasks N`` meta-trains data-parallel over N processes, one card
+each, started by torchrun: each rank runs M / N of a meta-batch's M tasks
+(``parallel.task_rows``) and the outer gradient is summed once a step. Rank
+0 alone resolves the config, writes the workdir (``config.yaml``,
+checkpoints, logs) and prints; the other ranks train its config. Started
+again on the same workdir, the ranks resume from rank 0's latest checkpoint.
 """
 
 from __future__ import annotations
@@ -185,7 +194,8 @@ def main(argv=None):
                    "that produces a NaN (forward ops are not checked)")
     p.add_argument("--profile", type=str, default=None,
                    help="train: write a torch.profiler Chrome trace into "
-                   "this directory")
+                   "this directory (under --mesh-tasks N > 1, rank r > 0 "
+                   "into <dir>_rank<r>)")
     p.add_argument("--lm-ckpt", type=str, default=None,
                    help="shallow-fusion LM npz (scripts/train_lm.py) for "
                    "beam decode; shorthand for -o train.lm_ckpt=...")
@@ -193,7 +203,10 @@ def main(argv=None):
                    help="shallow-fusion weight (0 = off); shorthand for "
                    "-o train.lm_weight=...")
     p.add_argument("--mesh-tasks", type=int, default=0,
-                   help="not ported yet (ROADMAP.md): refused")
+                   help="train with a meta algo: N processes on the task "
+                   "axis, one card each (no data axis), under torchrun "
+                   "--nproc-per-node N (its world size must be N); rank 0 "
+                   "alone writes the workdir")
     t = p.add_argument_group("train")
     t.add_argument("--algo",
                    choices=["no", "multi", "fomaml", "maml", "reptile"],
@@ -236,11 +249,6 @@ def main(argv=None):
                    help="also write one JSONL record per file here")
     args = p.parse_args(argv)
 
-    if args.mesh_tasks:
-        raise SystemExit("--mesh-tasks: the CLI's task mesh is not ported "
-                         "yet (ROADMAP.md §1 item 6b); a process group from "
-                         "metaasr_tpu_torch.parallel.initialize() runs "
-                         "MetaASRTrainer(..., group=) data-parallel")
     if args.export_platforms is not None:
         raise SystemExit(
             "--export-platforms names the StableHLO targets of the JAX "
@@ -255,16 +263,50 @@ def main(argv=None):
         from metaasr_tpu_torch.utils.profiling import nan_check
 
         nan_check(True)
+    group = _process_group(args)
     overrides = dict(_parse_override(kv) for kv in args.override)
     if args.mode == "serve":
         if not args.bundle or not args.wav:
             p.error("--mode serve needs --bundle DIR and --wav FILE "
                     "[FILE ...]")
         return _serve(args, overrides)
-    cfg = _run_config(args, overrides)
     if args.mode == "train":
-        return _train(args, cfg)
-    return _meta_test(args, cfg)
+        return _train(args, _train_config(args, overrides, group), group)
+    return _meta_test(args, _run_config(args, overrides))
+
+
+def _process_group(args):
+    """The process group ``--mesh-tasks N`` asks for (``None``: one
+    process), made before the config is resolved. N processes on the task
+    axis train one run; ``parallel.initialize`` takes torchrun's
+    environment (gloo for ``--device cpu``, else NCCL on ``cuda:LOCAL_RANK``)
+    or returns the group its caller made, and raises where the rendezvous
+    fails. A multi-process environment without the flag is refused: each
+    process would train the whole run into one workdir."""
+    from metaasr_tpu_torch import parallel
+
+    n = args.mesh_tasks
+    if n < 0:
+        raise SystemExit(f"--mesh-tasks {n}: give a number of processes")
+    if n > 1 and args.mode != "train":
+        raise SystemExit(
+            f"--mesh-tasks {n} runs meta-training over processes; --mode "
+            f"{args.mode} runs in one process: drop the flag")
+    if n and args.mode == "train":
+        group = parallel.initialize(device=args.device)
+        if parallel.world_size(group) != n:
+            raise SystemExit(
+                f"--mesh-tasks {n} but the world size is "
+                f"{parallel.world_size(group)}: start N processes "
+                f"(torchrun --nproc-per-node {n})")
+        return group
+    world = parallel.launched_world_size()
+    if world > 1:
+        raise SystemExit(
+            f"{world} processes (WORLD_SIZE) but no --mesh-tasks: each would "
+            f"train the whole run into one workdir; pass --mesh-tasks "
+            f"{world} with --mode train and a meta algo")
+    return None
 
 
 def _serve(args, overrides: dict) -> int:
@@ -311,22 +353,68 @@ def _run_config(args, overrides: dict) -> Config:
     return load_config(args.config, overrides)
 
 
-def _train(args, cfg: Config) -> int:
-    os.makedirs(args.workdir, exist_ok=True)
-    save_config(cfg, os.path.join(args.workdir, "config.yaml"))
-    trainer, _ = make_trainer(cfg, args.workdir, device=args.device)
+def _train_config(args, overrides: dict, group) -> Config:
+    """The run's config, resolved by rank 0 alone (``_run_config``: the
+    recorded ``config.yaml`` only where it is there) and handed to every
+    rank; where rank 0 fails, every rank raises."""
+    from metaasr_tpu_torch import parallel
+
+    if group is None:
+        return _run_config(args, overrides)
+    cfg = err = None
+    if parallel.rank(group) == 0:
+        try:
+            cfg = _run_config(args, overrides)
+        except (Exception, SystemExit) as e:
+            err = e
+    # the other ranks wait here for rank 0: a failure reaches them too
+    got, why = parallel.from_rank0(
+        (cfg, None if err is None else f"{type(err).__name__}: {err}"),
+        group)
+    if err is not None:
+        raise err
+    if why is not None:
+        raise SystemExit(f"rank 0 could not resolve the config: {why}")
+    return got
+
+
+def _train(args, cfg: Config, group=None) -> int:
+    """Rank 0 records the config as ``<workdir>/config.yaml`` and writes
+    the vocabulary file where one is built; every rank then trains rank
+    0's ``Config``, so no rank reads a file another writes."""
+    from metaasr_tpu_torch import parallel
+
+    rank = parallel.rank(group)
+    if cfg.meta.algo in ("no", "multi") and group is not None:
+        if parallel.world_size(group) > 1:
+            raise SystemExit(
+                f"--mesh-tasks {args.mesh_tasks}: algo {cfg.meta.algo} "
+                "trains in one process; the task mesh is for fomaml, maml "
+                "and reptile")
+        group = None
+    if rank == 0:
+        os.makedirs(args.workdir, exist_ok=True)
+        save_config(cfg, os.path.join(args.workdir, "config.yaml"))
+        if group is not None:
+            build_tokenizer(cfg)
+    parallel.barrier(group)
+    trainer, _ = make_trainer(cfg, args.workdir,
+                              device=parallel.rank_device(args.device, group),
+                              group=group)
     ctx = contextlib.nullcontext()
     if args.profile:
         from metaasr_tpu_torch.utils.profiling import trace
 
-        ctx = trace(args.profile)
+        ctx = trace(args.profile if rank == 0
+                    else f"{args.profile}_rank{rank}")
     # --max-steps bounds this invocation; the recorded config keeps its own
     with ctx:
         if cfg.meta.algo in ("no", "multi"):
             state = trainer.train(max_steps=args.max_steps)
         else:
             state = trainer.meta_train(max_steps=args.max_steps)
-    print(json.dumps({"workdir": args.workdir, "step": state["step"]}))
+    if rank == 0:
+        print(json.dumps({"workdir": args.workdir, "step": state["step"]}))
     return 0
 
 

@@ -16,6 +16,8 @@ up to the order of the fp32 sums.
 
 ``task_rows`` is ``host_local_slice``: the draw of a step stays global and
 each rank collates only its rows (``TaskSampler.sample(step, rows=)``).
+``broadcast_state`` hands rank 0's restored train state to every rank when
+a group's run resumes: only rank 0 writes and reads the workdir.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from metaasr_tpu_torch.utils.tree import flatten, unflatten_like
 
 
 def _env_int(name: str, default: int) -> int:
@@ -38,6 +42,25 @@ def world_size(group) -> int:
 
 def rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
+
+
+def launched_world_size() -> int:
+    """The number of processes this one was started among: the existing
+    group's, else torchrun's ``WORLD_SIZE`` (1 where it is unset)."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return _env_int("WORLD_SIZE", 1)
+
+
+def rank_device(device, group):
+    """The device a rank trains on: under a group on CUDA the rank's own
+    card with its index (the current device, which ``initialize`` set),
+    so that the trainer and the task compare equal; otherwise ``device``
+    as given."""
+    dev = torch.device("cuda" if device is None else device)
+    if group is None or dev.type != "cuda" or dev.index is not None:
+        return device
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def initialize(init_method: str | None = None, world_size: int | None = None,
@@ -150,3 +173,52 @@ def from_rank0(obj, group):
     dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
                                group=group)
     return box[0]
+
+
+def broadcast_state(state: dict, group) -> dict:
+    """Rank 0's train state on every rank -> ``state`` holding rank 0's
+    values (``state`` itself without a group).
+
+    ``state`` is a nested dict (``MetaASRTrainer``'s: params, opt_state,
+    step, seed, best_metric, stale_evals; a Meta-SGD tree too): rank 0's
+    restored checkpoint there, each other rank's ``init_state()``. Its
+    tensors travel as one flat buffer per dtype, in key order, broadcast
+    from rank 0 and copied into the other ranks' tensors in place; its
+    other leaves (Python numbers) go through ``from_rank0`` with rank 0's
+    tensor layout. Every rank checks that layout against its own and the
+    ranks agree on the outcome before any tensor moves, so a mismatch
+    raises ``ValueError`` on every rank, rank 0 included, instead of
+    leaving rank 0 blocked in a broadcast.
+    ``broadcast_state.calls`` counts the calls with a group."""
+    if group is None:
+        return state
+    flat = flatten(state)
+    tensors = {k: v for k, v in flat.items() if torch.is_tensor(v)}
+    layout = [(k, tuple(v.shape), v.dtype) for k, v in tensors.items()]
+    src = rank(group) == 0
+    head = from_rank0({"layout": layout, "other": {
+        k: v for k, v in flat.items() if k not in tensors}} if src else None,
+        group)
+    same = [None] * world_size(group)
+    dist.all_gather_object(same, head["layout"] == layout, group=group)
+    if not all(same):
+        raise ValueError(
+            f"rank(s) {[r for r, ok in enumerate(same) if not ok]} hold a "
+            "train state that differs from rank 0's in its tensors' names, "
+            "shapes or dtypes")
+    by_dtype: dict = {}
+    for k, v in tensors.items():
+        by_dtype.setdefault(v.dtype, []).append(v)
+    for dtype, parts in by_dtype.items():
+        sizes = [p.numel() for p in parts]
+        buf = (torch.cat([p.reshape(-1) for p in parts]) if src else
+               torch.empty(sum(sizes), dtype=dtype, device=parts[0].device))
+        dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
+        if not src:
+            for p, piece in zip(parts, buf.split(sizes)):
+                p.copy_(piece.view_as(p))
+    broadcast_state.calls += 1
+    return unflatten_like(state, {**tensors, **head["other"]})
+
+
+broadcast_state.calls = 0

@@ -47,9 +47,13 @@ sum the outer gradient across processes once a step, so every rank takes
 the same Adam update and the state stays replicated. Only rank 0 writes
 checkpoints and metric logs, and only rank 0 runs ``eval_heldout``: its
 scores are broadcast, so every rank takes the same best, stale and
-early-stop decision. A group's run cannot resume yet (rank 0 restoring a
-checkpoint raises); the CLI's ``--mesh-tasks`` is refused. The baseline
-trainers with their dev evaluation are in ``train/mono.py``.
+early-stop decision. A group's run resumes in fresh processes: rank 0
+restores the latest checkpoint and ``broadcast_state`` hands the whole
+state (parameters, optimizer state, step, seed, best metric, stale count)
+to every rank, so no rank but rank 0 reads the workdir; the feed goes on
+at the restored step. The CLI's ``--mesh-tasks N`` runs such a group under
+torchrun. The baseline trainers with their dev evaluation are in
+``train/mono.py``.
 """
 
 from __future__ import annotations
@@ -89,6 +93,7 @@ from metaasr_tpu_torch.meta.maml import (
 from metaasr_tpu_torch.models.lm import lm_from_flax
 from metaasr_tpu_torch.parallel.distributed import (
     barrier,
+    broadcast_state,
     from_rank0,
     rank,
     task_rows,
@@ -354,12 +359,8 @@ class MetaASRTrainer:
         state = self.init_state()
         if self.rank0:
             state, _ = self.ckpt.restore(state, map_location=self.device)
-        if self.group is not None:
-            start = from_rank0(state["step"], self.group)
-            if start:
-                raise RuntimeError(
-                    "a multi-process run cannot resume yet: rank 0 restored "
-                    f"step {start}; start it in a fresh workdir")
+        if self.group is not None and from_rank0(state["step"], self.group):
+            state = broadcast_state(state, self.group)
         m = self.cfg.meta
         # every rank's tasks: the group's rate, as one process counts it
         per_step = m.tasks_per_batch * (m.k_support * m.inner_steps

@@ -307,7 +307,7 @@ def test_profile_and_debug_nans(run, tmp_path):
 @pytest.mark.parametrize("argv,message", [
     (["--use-best", "--avg-last", "2"], "mutually exclusive"),
     (["--export-platforms", "cpu"], "StableHLO"),
-    (["--mesh-tasks", "2"], "not ported"),
+    (["--mesh-tasks", "2"], "--mode export runs in one process"),
 ], ids=["use_best_with_avg_last", "export_platforms", "mesh_tasks"])
 def test_refused_flags(tmp_path, argv, message):
     with pytest.raises(SystemExit, match=message):

@@ -190,7 +190,7 @@ def test_port_imports_neither_jax_nor_reference_package():
         "          'scripts.serve_bench', 'scripts.batcher_bench',\n"
         "          'scripts.flagship_results', 'scripts.demo_meta_adaptation',\n"
         "          'scripts.kshot_curve', 'data.grain_loader', 'parallel',\n"
-        "          'parallel.distributed'):\n"
+        "          'parallel.distributed', 'scripts.multihost_trainer_smoke'):\n"
         "    assert 'metaasr_tpu_torch.' + m in mods, mods\n"
         "from metaasr_tpu_torch.ops import _build\n"
         "assert not _build._libs, sorted(_build._libs)\n")

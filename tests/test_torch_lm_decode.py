@@ -111,7 +111,7 @@ def test_lm_weight_alone_decodes_as_weight_zero(setup, tmp_path):
 def test_cli_lm_flags_set_the_config(monkeypatch, tmp_path):
     seen = {}
 
-    def record(args, cfg):
+    def record(args, cfg, group=None):
         seen[args.mode] = cfg
         return 0
 

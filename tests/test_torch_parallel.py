@@ -370,11 +370,18 @@ def test_two_process_trainer_equals_one_process(ranks, corpus, tmp_path):
     _assert_ranks_equal(r0["params"], r1["params"])
 
 
-def test_cli_still_refuses_mesh_tasks(corpus, tmp_path):
-    """The CLI flag waits for ROADMAP.md §1 item 6b; ``make_trainer``
-    hands a group to the meta-trainer only."""
-    with pytest.raises(SystemExit, match="6b"):
-        cli.main(["--mesh-tasks", "2"])
+def test_cli_still_refuses_mesh_tasks(corpus, tmp_path, monkeypatch):
+    """The CLI refuses ``--mesh-tasks N`` where the world is not N
+    processes (here one, with no torchrun environment) and outside
+    meta-training (``tests/test_torch_mesh_tasks.py`` runs the flag);
+    ``make_trainer`` hands a group to the meta-trainer only."""
+    _clear_env(monkeypatch)
+    with pytest.raises(SystemExit, match="world size is 1"):
+        cli.main(["--mesh-tasks", "2", "--device", "cpu", "--workdir",
+                  str(tmp_path / "wd")])
+    with pytest.raises(SystemExit, match="--mode adapt runs in one"):
+        cli.main(["--mesh-tasks", "2", "--mode", "adapt"])
+    assert not (tmp_path / "wd").exists()
     cfg = worker.trainer_cfg(corpus[1])
     cfg.meta.algo = "multi"
     with pytest.raises(ValueError, match="process group"):

@@ -6,8 +6,12 @@ repo root: the process joins a gloo group of WORLD processes through a
 ``FileStore`` in DIR, runs the jobs listed in ``DIR/jobs.json`` on the CPU
 and writes its results to ``DIR/rank<RANK>.pt``. The test runs the same
 functions in its own process without a group, so both sides share the
-configurations, batches and weights made here from seeds. This module
-imports torch and the port only: no ``jax``, no ``metaasr_tpu``.
+configurations, batches and weights made here from seeds. A ``cli`` job
+runs ``cli.main`` under that group (``tests/test_torch_mesh_tasks.py``)
+and records what the rank trained, wrote and read; a ``mismatch`` job
+hands ``broadcast_state`` states that differ across ranks, and a
+``cli_error`` job records what each rank raised from a run that fails. This module imports
+torch and the port only: no ``jax``, no ``metaasr_tpu``.
 """
 
 from __future__ import annotations
@@ -175,6 +179,113 @@ def run_trainer(data_dir: str, workdir: str, group=None) -> dict:
             if os.path.isdir(workdir) else []}
 
 
+_AUDIT = {"root": None, "events": [], "hooked": False}
+
+
+def _audit(event: str, args) -> None:
+    """An audit hook: ("write" | "read" | "os.mkdir" | "os.rename" |
+    "os.remove", path relative to the root) for every file event under
+    ``_AUDIT["root"]``. ``torch.save`` writes a path from C++, unseen, but
+    the checkpoints' rename into place is seen."""
+    root = _AUDIT["root"]
+    if root is None or event not in ("open", "os.mkdir", "os.rename",
+                                     "os.remove"):
+        return
+    path = args[1] if event == "os.rename" else args[0]
+    if not isinstance(path, (str, bytes, os.PathLike)):
+        return
+    path = os.path.abspath(os.fsdecode(path))
+    if not path.startswith(root + os.sep):
+        return
+    kind = event
+    if event == "open":
+        mode, flags = args[1], args[2] or 0
+        kind = ("write" if (isinstance(mode, str)
+                            and any(c in mode for c in "wax+"))
+                or flags & (os.O_WRONLY | os.O_RDWR) else "read")
+    _AUDIT["events"].append((kind, os.path.relpath(path, root)))
+
+
+def cli_job(argv: list, audit_root: str | None = None) -> dict:
+    """``cli.main(argv)`` in the rank's group (its ``initialize()`` returns
+    the one ``main`` made) -> what the rank did: its exit code; the state
+    right after each ``broadcast_state`` (flat, on the cpu); the final
+    state's parameters, step, best metric and stale count; the config it
+    trained; the trainer's and the task's device; the file events under
+    ``audit_root`` (none recorded without one); the group's gradient
+    all-reduces and broadcasts."""
+    from metaasr_tpu_torch import cli
+    from metaasr_tpu_torch.config import to_dict
+    from metaasr_tpu_torch.parallel import broadcast_state, reduce_outer
+    from metaasr_tpu_torch.train import meta_train
+    from metaasr_tpu_torch.utils.tree import flatten
+
+    if audit_root is not None:
+        if not _AUDIT["hooked"]:
+            sys.addaudithook(_audit)
+            _AUDIT["hooked"] = True
+        _AUDIT["root"] = os.path.abspath(audit_root)
+    _AUDIT["events"] = []
+    out = {"broadcasts": [], "trainers": []}
+
+    def spy_broadcast(state, g):
+        state = broadcast_state(state, g)
+        out["broadcasts"].append({
+            k: v.detach().cpu().clone() if torch.is_tensor(v) else v
+            for k, v in flatten(state).items()})
+        return state
+
+    def spy_meta_train(self, *a, **k):
+        state = plain_meta_train(self, *a, **k)
+        out["trainers"].append({
+            "params": _numpy(state["params"]), "step": state["step"],
+            "best_metric": state["best_metric"],
+            "stale_evals": state["stale_evals"], "cfg": to_dict(self.cfg),
+            "devices": (str(self.device), str(self.task.device))})
+        return state
+
+    plain_meta_train = meta_train.MetaASRTrainer.meta_train
+    meta_train.broadcast_state = spy_broadcast
+    meta_train.MetaASRTrainer.meta_train = spy_meta_train
+    calls, reduces = broadcast_state.calls, reduce_outer.all_reduces
+    try:
+        out["rc"] = cli.main(argv)
+    finally:
+        meta_train.broadcast_state = broadcast_state
+        meta_train.MetaASRTrainer.meta_train = plain_meta_train
+        _AUDIT["root"] = None
+    out["events"] = list(_AUDIT["events"])
+    out["broadcast_calls"] = broadcast_state.calls - calls
+    out["all_reduces"] = reduce_outer.all_reduces - reduces
+    return out
+
+
+def broadcast_mismatch(group) -> dict:
+    """``broadcast_state`` where rank 1's state holds a tensor of another
+    shape than rank 0's -> {"error": what this rank raised, or None}."""
+    from metaasr_tpu_torch.parallel import broadcast_state, rank
+
+    state = {"params": {"w": torch.zeros(3 if rank(group) == 1 else 2)},
+             "step": 0}
+    try:
+        broadcast_state(state, group)
+    except ValueError as e:
+        return {"error": str(e)}
+    return {"error": None}
+
+
+def cli_error(argv: list) -> dict:
+    """``cli.main(argv)`` that is to fail -> {"error": "<type>: <message>"
+    of what this rank raised, or None}."""
+    from metaasr_tpu_torch import cli
+
+    try:
+        cli.main(argv)
+    except (Exception, SystemExit) as e:
+        return {"error": f"{type(e).__name__}: {e}"}
+    return {"error": None}
+
+
 def main(rank: int, world: int, out: str) -> None:
     from metaasr_tpu_torch.parallel import initialize
 
@@ -187,6 +298,12 @@ def main(rank: int, world: int, out: str) -> None:
     for job in jobs:
         if job["kind"] == "scenario":
             results[job["name"]] = run_scenario(job["name"], group)
+        elif job["kind"] == "cli":
+            results[job["name"]] = cli_job(job["argv"], job["audit_root"])
+        elif job["kind"] == "mismatch":
+            results[job["name"]] = broadcast_mismatch(group)
+        elif job["kind"] == "cli_error":
+            results[job["name"]] = cli_error(job["argv"])
         else:
             results["trainer"] = run_trainer(
                 job["data_dir"], os.path.join(out, f"wd{rank}"), group)
