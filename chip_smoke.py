@@ -56,11 +56,11 @@ Phases, one JSON line each; any failure exits non-zero:
 6. meta_step — the config3-width FOMAML meta-step (maml_grads + Adam/Noam,
              clip 5) on bench.py's workload, 4 tasks x (4 + 4) and
              4 x (16 + 16) utterances of 64,000 samples, 32 tokens, 3 inner
-             steps, bf16 grad_dtype, SpecAugment on: 2 warm-up, 5 timed and
+             steps, bf16 grad_dtype, SpecAugment on: 1 warm-up, 5 timed and
              1 profiled step per shape; every loss finite, and exactly
              2*M K1 and M*(inner_steps+1) K2 launches per step.
 7. train_entry — an 8-accent synthetic corpus; MetaASRTrainer.meta_train
-             (through the CLI's make_trainer) for 3 steps at config3 width,
+             (through the CLI's make_trainer) for 2 steps at config3 width,
              checkpoints written and restored, meta_adapt on the held-out
              accent, the adapted npz hot-swapped into a ServingDecoder that
              serves one utterance; exact launch counts.
@@ -114,22 +114,35 @@ Phases, one JSON line each; any failure exits non-zero:
              recursion on the card; device and host time, chain length and
              plan as in phase 5.
 12. maml_step — the config4-width second-order MAML meta-step (maml_grads
-             with first_order false + Adam/Noam, clip 5) on bench.py's
-             workload at config4's own shape, 4 x (16 + 16) utterances of
-             64,000 samples, 32 tokens, 2 inner steps, bf16 grad_dtype,
-             SpecAugment on: 1 warm-up, 3 timed, 1 profiled step; every loss
-             finite, exactly 2*M K1, M*(inner_steps+1) K2 and M*inner_steps
-             K2b launches per step. Before it, a small fp32 model's
-             second-order gradients on cuda against the cpu (worst leaf
-             l2rel <= 1e-3).
-13. maml_entry — ``configs/config4_maml.yaml`` through the CLI's
-             ``make_trainer`` on an 8-accent synthetic corpus: 2 meta-steps
-             at full width, the checkpoint restored exactly, meta_adapt on
-             the held-out accent; then one MAML step of a small VGG-BLSTM
+             with first_order false and remat_inner, config4's own setting,
+             + Adam/Noam, clip 5) on bench.py's workload at config4's own
+             shape, 4 x (16 + 16) utterances of 64,000 samples, 32 tokens,
+             2 inner steps, bf16 grad_dtype, SpecAugment on: 1 warm-up
+             without remat (it grows the allocator's cache to the larger
+             peak; its launches are not counted), 3 timed, 1 profiled step
+             with remat; every loss finite, exactly 2*M K1,
+             M*(2*inner_steps+1) K2 (each inner step once more in its
+             recompute) and M*inner_steps K2b launches per step. Then the
+             same step at the same parameters and seed with and without
+             remat_inner, each under deterministic algorithms with its own
+             peak-memory window: outer gradients within 1e-6 worst leaf
+             l2rel and the same meta loss, the peak with remat below the
+             peak without, exact launches each side (M*(inner_steps+1) K2
+             without); both peaks and their ratio, and each side's ms of
+             one step (order-dependent, not the recompute's cost). Before
+             it, a
+             small fp32 model's second-order gradients (remat on) on cuda
+             against the cpu (worst leaf l2rel <= 1e-3).
+13. maml_entry — ``configs/config4_maml.yaml`` (remat_inner true) through
+             the CLI's ``make_trainer`` on an 8-accent synthetic corpus: 2
+             meta-steps at full width, the checkpoint restored exactly,
+             meta_adapt on the held-out accent; then one MAML step of a
+             small VGG-BLSTM
              (hidden 64, 2 layers) through the same trainer, whose
              recurrence runs in the autograd loop (0 K3/K3b launches);
              and one ``eval_heldout`` of the MAML state (1 support draw,
-             4 test utterances, beam); exact launch counts.
+             4 test utterances, beam); exact launch counts (K2
+             M*(2*inner_steps+1) a MAML step; the adaptation first order).
 14. meta_test — the meta-test path through the CLI's ``main``, in this
              process, at config3 width (``configs/config3_fomaml.yaml``) on
              an 8-accent corpus of 16 utterances each, ``tango`` held out:
@@ -168,9 +181,12 @@ Phases, one JSON line each; any failure exits non-zero:
              per subcommand, utterances/s of ``features`` beside the card's
              name and power limit.
 17. acceptance — ``python -m metaasr_tpu_torch.scripts.acceptance --smoke
-             --steps 6 --utts 10`` as a subprocess on the card: rc 0,
-             ``ACCEPTANCE GREEN``, 8 served records with text and score, a
-             finite served WER; seconds per stage.
+             --steps 6 --utts 10`` as a subprocess on the card, started
+             before phase 23 and joined after it: rc 0, ``ACCEPTANCE
+             GREEN``, 8 served records with text and score, a finite served
+             WER; seconds per stage. The two share the card and the host,
+             so the drill's stage seconds and phase 23's seconds are read
+             beside the other workload (each phase's line says so).
 
 18. lm_fusion — LM shallow fusion. ``scripts.train_lm.main`` in this
              process at its defaults (embed 128, hidden 256, 2 layers,
@@ -199,11 +215,13 @@ Phases, one JSON line each; any failure exits non-zero:
              config3 width under the TF32 policy: the FOMAML step of the
              reference's conformer recipe (``meta.adapt_filter: decoder``,
              decoder-only inner steps) at phase 6's 4 x (16 + 16) on its
-             batch, 2 warm-up, 5 timed, 1 profiled step, beside phase 6's
+             batch, 1 warm-up, 5 timed, 1 profiled step, beside phase 6's
              cell of the same run (ratios of ms, kernels and busy ms); one
-             full-body FOMAML step; one second-order MAML step at
-             config4's shape (full body, 2 inner steps: gradients finite,
-             the conformer's ``u_bias`` and depthwise leaves non-zero);
+             full-body FOMAML step; one
+             second-order MAML step at config4's shape (full body, 2 inner
+             steps, remat_inner: gradients finite, the conformer's
+             ``u_bias`` and depthwise leaves non-zero; its peak memory
+             beside the 7.16 GB read without remat, a note);
              then the CLI with ``-o model.encoder=conformer`` on phase 14's
              corpus: train (2 steps, one held-out evaluation, beam),
              ``adapt --use-best``, ``test`` (beam), ``export`` and
@@ -287,14 +305,16 @@ Phases, one JSON line each; any failure exits non-zero:
              (restores step 2). Per call of ``meta_train``, ``train``,
              ``meta_adapt`` and ``decode``, the exact K1/K2/K2b launches
              the code gives (per step: FOMAML and Meta-SGD 2*M K1,
-             M*(inner+1) K2; MAML also M*inner K2b; Reptile 2*M K1,
+             M*(inner+1) K2; MAML 2*M K1, M*(2*inner+1) K2 with remat_inner
+             and M*inner K2b; Reptile 2*M K1,
              M*inner K2; multitask 1 and 1; an adaptation 1 K1 and 5 K2; a
              decode batch 1 K1; K3/K3b 0); the reference's JSON layout for
              every tag, ``adapt5_beam_avglast5`` exactly for the two
              FOMAML tags, every WER finite; the Meta-SGD checkpoint's
              ``inner_lr`` leaves finite and at least one moved off its
              initial rate. Each call's and arm's seconds beside the
-             phase's budget (150 s, printed, not gated).
+             phase's budget (150 s, printed, not gated), read with phase
+             17's drill running beside them.
 
 24. fusion_profiling — ``fusion_eval.main`` at config3 width in this
              process as a user runs it (the multitask arm, 2 steps; the
@@ -417,7 +437,7 @@ off only where the card is held against a plain version or the CPU
 12, phase 18's kernels at the LM's shape, LM parity and cuda/cpu serving,
 and phase 19's cuda/cpu serving), through ``strict_fp32``.
 
-Four more modes, each needing one card (and ``--dp-worker RANK DIR
+Five more modes, each needing one card (and ``--dp-worker RANK DIR
 a|b``, phase 27's rank processes, which ``start_data_parallel`` starts):
 
     python3 chip_smoke.py --precision-ab    # phases 9, 10 under the policy,
@@ -429,6 +449,10 @@ a|b``, phase 27's rank processes, which ``start_data_parallel`` starts):
                                             # 2's three main shapes
     python3 chip_smoke.py --paths-ab PARENT # phases 3 and 6 (serving, the
                                             # FOMAML step) the same way
+    python3 chip_smoke.py --phases-ab PARENT NAME,...
+                                            # the named phases (``phase_``
+                                            # NAME), each tree's own code,
+                                            # the same way: their seconds
 """
 
 from __future__ import annotations
@@ -1217,7 +1241,7 @@ def phase_meta_step(torch):
            "grad_dtype": cfg.meta.grad_dtype, "specaug": True,
            "optimizer": "adam, noam lr 0.5 warmup 2000, clip 5.0",
            "cells": []}
-    warmup, timed = 2, 5
+    warmup, timed = 1, 5
     for m_tasks, k_shot in META_SHAPES:
         st = {"params": task.init_params(0)}
         st["opt"] = opt.init(st["params"])
@@ -1295,7 +1319,7 @@ def phase_train_entry(torch):
     from metaasr_tpu_torch.weights import params_to_flax
 
     cfg, tok = config3_train()
-    steps = 3
+    steps = 2
     with tempfile.TemporaryDirectory() as d:
         data = os.path.join(d, "data")
         t0 = time.perf_counter()
@@ -1305,7 +1329,7 @@ def phase_train_entry(torch):
         cfg.data.data_dir = data
         cfg.data.heldout_accents = ("tango",)
         cfg.train.log_every = 1
-        cfg.train.ckpt_every = 2
+        cfg.train.ckpt_every = 1
         cfg.train.keep_ckpts = 2
         fused_log_mel.launches = 0
         ctc_alpha_beta.launches = 0
@@ -1347,7 +1371,7 @@ def phase_train_entry(torch):
            "k1_launches": k1, "k1_expected": want_k1,
            "k2_launches": k2, "k2_expected": want_k2}
     log(out)
-    if not (state["step"] == steps and ckpts == [2, 3] and restored_equal
+    if not (state["step"] == steps and ckpts == [1, 2] and restored_equal
             and all(math.isfinite(r["meta_loss"]) for r in recs)):
         raise SystemExit("meta-train / checkpoint round trip failed")
     check_results(served, 1, tok)
@@ -2069,7 +2093,63 @@ def small_maml_parity(torch):
     return res
 
 
+def k2_per_task(inner: int, algo: str = "fomaml", remat: bool = True) -> int:
+    """K2 launches a task makes in one meta-step, from the code: one an
+    inner step and one for the query; under second-order MAML with
+    ``meta.remat_inner``, one more an inner step (its recompute in the outer
+    backward); Reptile runs its inner steps on support + query at once and
+    no query loss."""
+    if algo == "reptile":
+        return inner
+    return (2 if algo == "maml" and remat else 1) * inner + 1
+
+
+def remat_pair(torch, grad_fns, params, mb, seed):
+    """The second-order step's outer gradient at ``params`` and ``seed``
+    through ``grad_fns[True]`` (remat) and then ``grad_fns[False]``, each
+    under deterministic algorithms with its own peak-memory window ->
+    (readings, the worst leaf l2rel between the sides, bit-equal?). The
+    sides' gradients are moved to the host between them, so neither peak
+    holds the other's. Each side's ms is one step's, read in this order
+    after a profiled step: the order moves it (remat / none 0.86-0.88 with
+    none first, 1.2-1.5 with remat first), so it is no measure of what the
+    recompute costs; the medians of timed steps of two trees in ABBA order
+    are."""
+    sides, grads = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in (True, False):
+            fn = grad_fns[remat]
+            zero_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            g, metrics = fn(params, mb, seed)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            sides[remat] = {"ms_single_shot": ms,
+                            "peak_mem_gb": torch.cuda.max_memory_allocated()
+                            / 1e9,
+                            "meta_loss": float(metrics["meta_loss"]),
+                            "launches": all_counts()}
+            grads[remat] = {k: v.float().cpu() for k, v in g.items()}
+            del g, metrics
+    finally:
+        torch.use_deterministic_algorithms(False)
+    off, on = grads[False], grads[True]
+    worst = max(float(torch.linalg.norm(on[k] - off[k])
+                      / torch.linalg.norm(off[k]).clamp_min(1e-4))
+                for k in off)
+    bit_equal = all(torch.equal(on[k], off[k]) for k in off)
+    return sides, worst, bit_equal
+
+
+REMAT_GRAD_L2REL = 1e-6   # tests/test_torch_remat.py: remat = no remat
+
+
 def phase_maml_step(torch):
+    import dataclasses
+
     from metaasr_tpu_torch.meta.maml import fold_in, maml_grads
     from metaasr_tpu_torch.task import ASRTask
     from metaasr_tpu_torch.train.meta_train import algo_config
@@ -2079,7 +2159,9 @@ def phase_maml_step(torch):
     cfg, tok = config4()
     task = ASRTask(cfg, tok.sos_eos_id, device=DEVICE)
     algo = algo_config(cfg)
-    grad_fn = maml_grads(task.loss_fn, algo, task.preprocess)
+    grad_fns = {remat: maml_grads(
+        task.loss_fn, dataclasses.replace(algo, remat_inner=remat),
+        task.preprocess) for remat in (False, True)}
     opt = make_optimizer(cfg.optimizer, cfg.model.d_model)
     inner = cfg.meta.inner_steps
     m_tasks, k_shot = MAML_SHAPE
@@ -2088,16 +2170,25 @@ def phase_maml_step(torch):
     mb = bench_meta_batch(torch, m_tasks, k_shot, tok.vocab_size)
     losses = []
 
-    def one_step(i):
-        grads, metrics = grad_fn(st["params"], mb, fold_in(0, i))
+    def one_step(i, remat=algo.remat_inner):
+        grads, metrics = grad_fns[remat](st["params"], mb, fold_in(0, i))
         updates, st["opt"] = opt.update(grads, st["opt"], st["params"])
         st["params"] = apply_updates(st["params"], updates)
         losses.append(metrics["meta_loss"])
 
+    def want(steps, remat):
+        return {"k1": steps * 2 * m_tasks,
+                "k2": steps * m_tasks * k2_per_task(inner, "maml", remat),
+                "k2b": steps * m_tasks * inner, "k3": 0, "k3b": 0}
+
     warmup, timed = 1, 3
-    zero_counts()
+    # the warm-up keeps its activations: it grows the allocator's cache to
+    # the no-remat peak, which the no-remat side below would otherwise pay
+    # for in its time. Its launches are not the main path's: the pair below
+    # gates a step without remat on its own
     for i in range(warmup):
-        one_step(i)
+        one_step(i, remat=False)
+    zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -2109,17 +2200,22 @@ def phase_maml_step(torch):
     peak = torch.cuda.max_memory_allocated()
     prof = device_busy(torch, lambda: one_step(warmup + timed))
     counts = all_counts()
-    steps = warmup + timed + 1
-    want = {"k1": steps * 2 * m_tasks, "k2": steps * m_tasks * (inner + 1),
-            "k2b": steps * m_tasks * inner, "k3": 0, "k3b": 0}
+    steps = timed + 1
+    want_counts = want(steps, True)
+    # the same step with and without the recompute, at these parameters
+    # and one seed
+    sides, worst, bit_equal = remat_pair(torch, grad_fns, st["params"], mb,
+                                         fold_in(0, warmup + steps))
     ms = statistics.median(times)
     loss_vals = [float(x) for x in losses]
+    off, on = sides[False], sides[True]
     out = {"phase": "maml_step", "parity_small": parity,
            "algo": "maml (first_order false)", "inner_steps": inner,
            "grad_dtype": cfg.meta.grad_dtype, "specaug": True,
-           "remat_inner": f"{cfg.meta.remat_inner} (accepted, not acted on)",
+           "remat_inner": algo.remat_inner,
            "optimizer": "adam, noam lr 0.5 warmup 2000, clip 5.0",
-           "tasks": m_tasks, "shots": k_shot, "steps": steps,
+           "tasks": m_tasks, "shots": k_shot, "warmup_no_remat": warmup,
+           "steps": steps,
            "ms_per_step": ms, "ms_per_step_all": times,
            "unique_utts_per_s": m_tasks * 2 * k_shot / (ms / 1e3),
            "presentations_per_s":
@@ -2129,13 +2225,36 @@ def phase_maml_step(torch):
                              "cuda_kernels": prof[2],
                              "top_kernels_ms": prof[3]},
            "device_busy_share": None if prof[1] is None else prof[1] / ms,
-           "launches": counts, "launches_expected": want,
-           "meta_loss": loss_vals}
+           "launches": counts, "launches_expected": want_counts,
+           "meta_loss": loss_vals,
+           "remat_ab": {
+               "deterministic": True, "no_remat": off, "remat": on,
+               "no_remat_expected": want(1, False),
+               "remat_expected": want(1, True),
+               "peak_ratio": on["peak_mem_gb"] / off["peak_mem_gb"],
+               "ms_single_shot_is": "one step a side, remat first, after "
+                                    "the profiled step: order-dependent, "
+                                    "not the recompute's cost",
+               "worst_grad_leaf_l2rel": worst, "bit_equal": bit_equal,
+               "bar": REMAT_GRAD_L2REL}}
     log(out)
     if not all(math.isfinite(v) for v in loss_vals):
         raise SystemExit("non-finite meta loss in the MAML step")
-    if counts != want:
-        raise SystemExit(f"MAML step launch counts {counts}, want {want}")
+    if counts != want_counts:
+        raise SystemExit(f"MAML step launch counts {counts}, want "
+                         f"{want_counts}")
+    if (off["launches"], on["launches"]) != (want(1, False), want(1, True)):
+        raise SystemExit(f"MAML step launch counts without / with remat "
+                         f"{off['launches']} / {on['launches']}, want "
+                         f"{want(1, False)} / {want(1, True)}")
+    if not (worst <= REMAT_GRAD_L2REL
+            and on["meta_loss"] == off["meta_loss"]):
+        raise SystemExit(f"remat changes the MAML step: worst leaf l2rel "
+                         f"{worst}, meta loss {on['meta_loss']} against "
+                         f"{off['meta_loss']}")
+    if not on["peak_mem_gb"] < off["peak_mem_gb"]:
+        raise SystemExit(f"remat saves no memory: peak {on['peak_mem_gb']} "
+                         f"GB against {off['peak_mem_gb']} GB without it")
     del st, mb
     torch.cuda.empty_cache()
     return out
@@ -2161,7 +2280,7 @@ def phase_maml_entry(torch):
         gen_s = time.perf_counter() - t0
         cfg = load_config(config_path, {
             "data.data_dir": data, "train.log_every": 1,
-            "train.ckpt_every": 2, "train.keep_ckpts": 2})
+            "train.ckpt_every": steps, "train.keep_ckpts": 2})
         cfg.data.heldout_accents = ("tango",)
         zero_counts()
         t0 = time.perf_counter()
@@ -2212,7 +2331,8 @@ def phase_maml_entry(torch):
         vgg_counts = all_counts()
     m = cfg.meta
     want = {"k1": steps * 2 * m.tasks_per_batch + 1,          # + adapt
-            "k2": steps * m.tasks_per_batch * (m.inner_steps + 1)
+            "k2": steps * m.tasks_per_batch
+            * k2_per_task(m.inner_steps, m.algo, m.remat_inner)
             + m.adapt_steps,
             "k2b": steps * m.tasks_per_batch * m.inner_steps,
             "k3": 0, "k3b": 0}
@@ -2220,10 +2340,12 @@ def phase_maml_entry(torch):
     eval_want = {"k1": 2, "k2": m.adapt_steps, "k2b": 0, "k3": 0, "k3b": 0}
     vm = small.meta
     vgg_want = {"k1": 2 * vm.tasks_per_batch,
-                "k2": vm.tasks_per_batch * (vm.inner_steps + 1),
+                "k2": vm.tasks_per_batch
+                * k2_per_task(vm.inner_steps, vm.algo, vm.remat_inner),
                 "k2b": vm.tasks_per_batch * vm.inner_steps, "k3": 0, "k3b": 0}
     out = {"phase": "maml_entry", "config": "configs/config4_maml.yaml",
            "algo": m.algo, "inner_steps": m.inner_steps,
+           "remat_inner": m.remat_inner,
            "tasks_x_shots": [m.tasks_per_batch, m.k_support, m.k_query],
            "accents": 8, "heldout": "tango", "corpus_s": gen_s,
            "meta_train_s": train_s, "steps": state["step"],
@@ -2243,7 +2365,7 @@ def phase_maml_entry(torch):
                "meta_loss": [r["meta_loss"] for r in vgg_recs],
                "launches": vgg_counts, "launches_expected": vgg_want}}
     log(out)
-    if not (state["step"] == steps and ckpts == [2] and restored_equal
+    if not (state["step"] == steps and ckpts == [steps] and restored_equal
             and adapted_finite
             and all(math.isfinite(r["meta_loss"]) for r in recs)):
         raise SystemExit("MAML meta-train / checkpoint / adapt failed")
@@ -2720,26 +2842,57 @@ def phase_data_prep(torch, smi):
     return out
 
 
-def phase_acceptance(torch):
-    """The smoke drill as a user runs it, on the card."""
-    with tempfile.TemporaryDirectory() as d:
-        out_dir = os.path.join(d, "acc")
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "metaasr_tpu_torch.scripts.acceptance",
-             "--out", out_dir, "--smoke", "--steps", "6", "--utts", "10"],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=600)
+ACCEPTANCE_ARGV = ["--smoke", "--steps", "6", "--utts", "10"]
+# what runs beside phase 23 and beside phase 17's drill in the whole smoke
+FLAGSHIP_BESIDE = ("phase 17's acceptance drill, a subprocess on the same "
+                   "card and host", "phase 23, the flagship table, in the "
+                   "smoke's own process on the same card")
+
+
+def start_acceptance():
+    """Phase 17's drill, a subprocess of the port's entry points, started
+    before phase 23 so that its process start-ups overlap the flagship's
+    work -> (its TemporaryDirectory, the process, its log file, the start
+    time). The two then share the card and the host: the drill's stage
+    seconds and phase 23's seconds are each read beside the other
+    workload, and their lines say so."""
+    tmp = tempfile.TemporaryDirectory()
+    log_f = open(os.path.join(tmp.name, "drill.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "metaasr_tpu_torch.scripts.acceptance",
+         "--out", os.path.join(tmp.name, "acc"), *ACCEPTANCE_ARGV],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=log_f, stderr=subprocess.STDOUT, text=True)
+    return tmp, proc, log_f, time.perf_counter()
+
+
+def phase_acceptance(torch, started=None):
+    """The smoke drill as a user runs it, on the card. ``started``:
+    ``start_acceptance()``'s result, else it starts here."""
+    tmp, proc, log_f, t0 = started or start_acceptance()
+    with tmp:
+        try:
+            rc = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise SystemExit("the acceptance drill ran over 600 s")
+        finally:
+            log_f.close()
         wall = time.perf_counter() - t0
+        out_dir = os.path.join(tmp.name, "acc")
+        with open(log_f.name) as f:
+            text = f.read()
         summary, records = None, []
-        if r.returncode == 0:
+        if rc == 0:
             with open(os.path.join(out_dir, "acceptance.json")) as f:
                 summary = json.load(f)
             with open(os.path.join(out_dir, "serve_out.jsonl")) as f:
                 records = [json.loads(line) for line in f]
-    out = {"phase": "acceptance", "argv": "--smoke --steps 6 --utts 10",
-           "rc": r.returncode, "seconds": round(wall, 3),
-           "green": "ACCEPTANCE GREEN" in r.stdout}
+    out = {"phase": "acceptance", "argv": " ".join(ACCEPTANCE_ARGV),
+           "rc": rc, "seconds_start_to_join": round(wall, 3),
+           "read_beside": None if started is None else FLAGSHIP_BESIDE[1],
+           "green": "ACCEPTANCE GREEN" in text}
     if summary is not None:
         out.update({"stage_seconds": {k: v.get("sec") for k, v in
                                       summary["stages"].items()},
@@ -2748,10 +2901,10 @@ def phase_acceptance(torch):
                     "adapted_wer": summary["adapted_wer"],
                     "served_sample": records[:2]})
     log(out)
-    if not (r.returncode == 0 and out["green"] and len(records) == 8
+    if not (rc == 0 and out["green"] and len(records) == 8
             and all("text" in x and "score" in x for x in records)
             and math.isfinite(summary["served_wer"])):
-        print(r.stdout[-3000:], r.stderr[-3000:], file=sys.stderr)
+        print(text[-6000:], file=sys.stderr)
         raise SystemExit("the acceptance drill failed")
     return out
 
@@ -3328,13 +3481,16 @@ def phase_conformer(torch, meta):
     mb = bench_meta_batch(torch, m_tasks, k_shot, tok.vocab_size)
     inner = cfg.meta.inner_steps
 
-    def want(r, inner, second_order=False):
+    def want(r, meta):
         n = r["steps"] * m_tasks
-        return {"k1": n * 2, "k2": n * (inner + 1),
-                "k2b": n * inner if second_order else 0, "k3": 0, "k3b": 0}
+        return {"k1": n * 2,
+                "k2": n * k2_per_task(meta.inner_steps, meta.algo,
+                                      meta.remat_inner),
+                "k2b": n * meta.inner_steps if meta.algo == "maml" else 0,
+                "k3": 0, "k3b": 0}
 
-    # (1) the timed step of the recipe, 2 warm-ups, 5 timed, 1 profiled
-    r = conformer_step(torch, cfg, tok, mb, 2, 5, profile=True)
+    # (1) the timed step of the recipe, 1 warm-up, 5 timed, 1 profiled
+    r = conformer_step(torch, cfg, tok, mb, 1, 5, profile=True)
     ms = statistics.median(r["times"])
     prof = r["prof"]
     cell6 = next(c for c in meta["cells"]
@@ -3362,7 +3518,7 @@ def phase_conformer(torch, meta):
             "ratio_busy_ms": (None if None in (prof[1], p6["device_busy_ms"])
                               else prof[1] / p6["device_busy_ms"])},
         "meta_loss": r["meta_loss"],
-        "launches": r["launches"], "launches_expected": want(r, inner)}
+        "launches": r["launches"], "launches_expected": want(r, cfg.meta)}
     del r
 
     # (2) one untimed full-body FOMAML step: the inner backward runs
@@ -3372,7 +3528,7 @@ def phase_conformer(torch, meta):
     r = conformer_step(torch, full, tok, mb, 0, 1)
     res["fomaml_full_body"] = {
         "steps": r["steps"], "ms": r["times"][0], "meta_loss": r["meta_loss"],
-        "launches": r["launches"], "launches_expected": want(r, inner)}
+        "launches": r["launches"], "launches_expected": want(r, full.meta)}
     del r
 
     # (3) one second-order MAML step at config4's shape (full body)
@@ -3384,13 +3540,16 @@ def phase_conformer(torch, meta):
         "encoder.layers.0.self_attn.u_bias",
         "encoder.layers.0.conv.depthwise.weight")}
     res["maml_second_order"] = {
-        "inner_steps": 2, "steps": r["steps"], "ms": r["times"][0],
-        "peak_mem_gb": r["peak_mem_gb"], "meta_loss": r["meta_loss"],
+        "inner_steps": 2, "remat_inner": maml.meta.remat_inner,
+        "steps": r["steps"], "ms": r["times"][0],
+        "peak_mem_gb": r["peak_mem_gb"],
+        # a note, not a gate: this step's peak without the recompute, read
+        # in another run (NVIDIA H100 80GB HBM3, 700 W)
+        "peak_mem_gb_no_remat_earlier": 7.16, "meta_loss": r["meta_loss"],
         "grads_finite": all(bool(torch.isfinite(v).all())
                             for v in g.values()),
         "conformer_leaf_grad_max": leaf_max,
-        "launches": r["launches"],
-        "launches_expected": want(r, 2, second_order=True)}
+        "launches": r["launches"], "launches_expected": want(r, maml.meta)}
     del r, g, mb
     torch.cuda.empty_cache()
 
@@ -4030,7 +4189,8 @@ def flagship_expected(flagship, argv, n_heldout: int) -> tuple[dict, dict]:
     """The launches each trainer call of one ``flagship_results.main(argv)``
     makes, from the code -> ({"Cls.method": [counts, ...]}, {tag: keys of
     its results entry}). Per step: FOMAML / Meta-SGD K1 2·M, K2
-    M·(inner+1); MAML the same and K2b M·inner; Reptile K1 2·M, K2 M·inner
+    M·(inner+1); MAML K1 2·M, K2 M·(2·inner+1) with ``remat_inner`` (the
+    recompute) and K2b M·inner; Reptile K1 2·M, K2 M·inner
     (its inner steps on support + query at once, no query backward);
     multitask K1 1, K2 1. Each adaptation K1 1, K2 5; each decode batch
     K1 1."""
@@ -4047,9 +4207,8 @@ def flagship_expected(flagship, argv, n_heldout: int) -> tuple[dict, dict]:
             cfg = flagship.make_cfg("fomaml", n, "")   # the evaluation's
         else:
             name, k1 = "MetaASRTrainer.meta_train", n * 2 * m.tasks_per_batch
-            k2 = n * m.tasks_per_batch * m.inner_steps
-            if algo != "reptile":
-                k2 += n * m.tasks_per_batch
+            k2 = n * m.tasks_per_batch * k2_per_task(m.inner_steps, algo,
+                                                     m.remat_inner)
             if algo == "maml":
                 k2b = n * m.tasks_per_batch * m.inner_steps
         if algo == "multi" or not args.eval_only:
@@ -4083,10 +4242,12 @@ def flagship_entry_ok(entry: dict, keys: set, draws: int) -> bool:
             and all(math.isfinite(w) and w >= 0 for w in wers))
 
 
-def phase_flagship(torch, smi):
+def phase_flagship(torch, smi, beside=None):
     """flagship_results.main at config3 width, in this process, on a fresh
     corpus and workdir: the four arms, Meta-SGD, and --eval-only over the
-    arms' FOMAML workdir; exact launch counts per trainer call."""
+    arms' FOMAML workdir; exact launch counts per trainer call. ``beside``:
+    what else runs on the card and the host meanwhile, printed with the
+    seconds."""
     import io
 
     from metaasr_tpu_torch.data.dataset import Manifest
@@ -4096,7 +4257,8 @@ def phase_flagship(torch, smi):
 
     t_phase = time.perf_counter()
     out = {"phase": "flagship", "card": smi, "steps": FLAGSHIP_STEPS,
-           "utts_per_accent": FLAGSHIP_UTTS, "calls": {}}
+           "utts_per_accent": FLAGSHIP_UTTS, "seconds_read_beside": beside,
+           "calls": {}}
     ok = True
     with tempfile.TemporaryDirectory() as work:
         data = os.path.join(work, "data")
@@ -5442,6 +5604,28 @@ def precision_ab(torch, kind) -> int:
     return 0
 
 
+def abba(parent: str, argv, timeout: int, in_root: bool = False) -> list:
+    """``argv(root)`` for PARENT's checkout and for this one, each in a
+    process of its own (run in ``root`` if ``in_root``), in the order
+    parent, this, this, parent: each run's output printed, and each run's
+    last line, a JSON object, returned in that order."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for root in (parent, here, here, parent):
+        proc = subprocess.run(argv(root), cwd=root if in_root else None,
+                              capture_output=True, text=True,
+                              timeout=timeout, check=True)
+        print(proc.stdout.strip(), flush=True)
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    return runs
+
+
+def this_script(flag: str):
+    """``abba``'s ``argv`` for a mode of this script that takes the root."""
+    return lambda root: [sys.executable, os.path.abspath(__file__), flag,
+                         root]
+
+
 CTC_AB_SHAPES = ("per_task", "fused", "long_t")
 
 
@@ -5487,14 +5671,8 @@ def ctc_ab(parent: str) -> int:
     """--ctc-ab PARENT: ctc_times of PARENT's checkout and of this one, each
     in its own process, in the order parent, this, this, parent; then the
     device-time ratios, this over parent, of the means."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    runs = []
-    for root in (parent, here, here, parent):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--ctc-times", root],
-            capture_output=True, text=True, timeout=600, check=True)
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    runs = abba(parent, this_script("--ctc-times"), 600)
+
     def mean(rs, name, key):
         return statistics.mean(r["shapes"][name][key] for r in rs)
 
@@ -5532,14 +5710,7 @@ def fbank_ab(parent: str) -> int:
     """--fbank-ab PARENT: fbank_times of PARENT's checkout and of this one,
     each in its own process, in the order parent, this, this, parent; then
     the device-time ratios, this over parent, of the means."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    runs = []
-    for root in (parent, here, here, parent):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--fbank-times", root],
-            capture_output=True, text=True, timeout=600, check=True)
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    runs = abba(parent, this_script("--fbank-times"), 600)
 
     def mean(rs, name):
         return statistics.mean(r["shapes"][name]["k1_device_ms"] for r in rs)
@@ -5585,14 +5756,7 @@ def paths_ab(parent: str) -> int:
     each in its own process, in the order parent, this, this, parent; then
     the ratios, this over parent, of the means of the step and batch times,
     kernel counts and busy times."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    runs = []
-    for root in (parent, here, here, parent):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--paths-times", root],
-            capture_output=True, text=True, timeout=900, check=True)
-        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    runs = abba(parent, this_script("--paths-times"), 900)
 
     def ratio(get):
         return (statistics.mean(get(r) for r in runs[1:3])
@@ -5611,6 +5775,51 @@ def paths_ab(parent: str) -> int:
 
     log({"paths_ab_ratio_this_over_parent": {
         "/".join(k): ratio(lambda r, k=k: pick(r, k)) for k in keys}})
+    return 0
+
+
+# One process's named phases, run by the chip_smoke.py of the directory it
+# runs in: each phase's arguments by their names, from phase_build, the
+# card's peak rates and the outputs of the phases named before it.
+PHASE_TIMES = r"""
+import inspect, json, sys, time, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from metaasr_tpu_torch.device import resolve_device
+resolve_device("cuda")
+smi, lstm_ptxas = c.phase_build()
+have = {"torch": torch, "smi": smi, "lstm_ptxas": lstm_ptxas,
+        "peaks": c.card_peaks(torch.cuda.get_device_name(0))[1]}
+alias = {"meta_step": "meta", "mono_step": "mono"}
+secs = {}
+for name in sys.argv[1].split(","):
+    fn = getattr(c, "phase_" + name)
+    args = []
+    for p, par in inspect.signature(fn).parameters.items():
+        if p in have:
+            args.append(have[p])
+        elif par.default is inspect.Parameter.empty:
+            raise SystemExit(f"phase_{name} needs {p!r}: name the phase "
+                             f"that makes it before it")
+    t0 = time.perf_counter()
+    have[alias.get(name, name)] = fn(*args)
+    secs[name] = round(time.perf_counter() - t0, 1)
+print(json.dumps({"root_phase_seconds": secs}))
+"""
+
+
+def phases_ab(parent: str, names: str) -> int:
+    """--phases-ab PARENT NAME,...: the phases ``phase_NAME`` of PARENT's
+    checkout and of this one, each run by its own tree's chip_smoke.py in a
+    process of its own, in the order parent, this, this, parent: every
+    phase's lines, each run's phase seconds, then this tree's mean less
+    the parent's per phase."""
+    runs = [r["root_phase_seconds"] for r in abba(
+        parent, lambda root: [sys.executable, "-c", PHASE_TIMES, names],
+        1800, in_root=True)]
+    log({"phases_ab_seconds": runs, "this_less_parent": {
+        k: statistics.mean(r[k] for r in runs[1:3])
+        - statistics.mean(r[k] for r in runs[::3]) for k in runs[0]}})
     return 0
 
 
@@ -5637,6 +5846,8 @@ def main() -> int:
         return fbank_ab(args[1])
     if args[:1] == ["--paths-ab"] and len(args) == 2:
         return paths_ab(args[1])
+    if args[:1] == ["--phases-ab"] and len(args) == 3:
+        return phases_ab(args[1], args[2])
     if args and args != ["--precision-ab"]:
         print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
         return 2
@@ -5676,13 +5887,18 @@ def main() -> int:
     meta_test = timed(phase_meta_test, torch)
     mono_test = timed(phase_mono_test, torch)
     prep = timed(phase_data_prep, torch, smi)
-    timed(phase_acceptance, torch)
     lm = timed(phase_lm_fusion, torch, peaks, serving, smi)
     conformer = timed(phase_conformer, torch, meta)
     bench = timed(phase_bench, torch, smi)
     serving_benches = timed(phase_serving_benches, torch, smi)
     quality = timed(phase_quality_scripts, torch, smi)
-    flag = timed(phase_flagship, torch, smi)
+    drill = start_acceptance()          # phase 17, beside phase 23
+    try:
+        flag = timed(phase_flagship, torch, smi, FLAGSHIP_BESIDE[0])
+    except BaseException:
+        drill[1].kill()
+        raise
+    timed(phase_acceptance, torch, drill)
     fusion = timed(phase_fusion_profiling, torch, smi)
     resident = timed(phase_resident_corpus, torch, smi, corpus)
     dp_ranks = start_data_parallel()     # they start up during phase 26
@@ -5697,6 +5913,8 @@ def main() -> int:
     # the host's speed beside the run's seconds: phase 21's B 16 decode
     b16_ms = serving_benches["decode"][0]["ms_per_batch"]
     log({"phase_seconds": seconds,
+         "read_beside": {"flagship": "acceptance (its seconds are the "
+                                     "join's alone)"},
          "total_phase_seconds": round(sum(seconds.values()), 1),
          "b16_decode_ms": b16_ms,
          "target_phase_seconds": 950 if b16_ms < 3000 else 1120})

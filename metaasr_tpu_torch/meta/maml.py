@@ -20,6 +20,14 @@ verbatim by the ASR task.
   the CTC term is (K2's Function routes its posterior through K2b,
   ``ops/ctc_kernel.py``); K3/K3b are not, so the trainer switches the BLSTM
   to the autograd loop (``ASRTask.require_full_autodiff``).
+- ``remat_inner`` (on by default, as in the reference, which wraps the step
+  in ``jax.checkpoint``): under second order each inner step is one
+  ``_Recomputed`` Function. Its forward takes the step with a plain
+  first-order gradient and keeps only the step's inputs; its backward runs
+  the same step again with ``create_graph=True`` and returns the VJP. One
+  recompute a step, and no step's activations outlive it: memory, never
+  values. The recompute rebuilds its dropout generator from the step's
+  integer seed (a generator object would have moved on by then).
 - The task axis is a loop: batches carry a leading task axis [M, k, ...],
   each task runs and back-propagates its query loss / M in turn (one task's
   graph alive at a time) into fp32 accumulators, and the outer gradient is
@@ -45,11 +53,13 @@ verbatim by the ASR task.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from metaasr_tpu_torch.parallel.distributed import reduce_outer, world_size
 from metaasr_tpu_torch.utils.tree import flatten, unflatten_like
@@ -61,6 +71,9 @@ class MetaAlgoConfig:
     inner_lr: float = 1e-2
     inner_steps: int = 3
     first_order: bool = True
+    # recompute each second-order inner step in the outer backward instead
+    # of keeping its activations (first order never recomputes)
+    remat_inner: bool = True
     # low-precision meta-step: cast the fp32 masters once on entry, run the
     # inner loop and the outer backward in this dtype, cast the gradients
     # back to each master leaf's dtype on exit
@@ -147,29 +160,40 @@ def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
 
     With ``cfg.first_order`` false the adapted parameters keep their graph
     back to ``params`` through every inner gradient (second-order MAML).
-    The reference's ``meta.remat_inner`` (recompute each inner step: memory,
-    never values) has no counterpart here: the yaml key is accepted and
-    ignored, and the inner steps' activations stay alive until the outer
-    backward, one task at a time under ``maml_grads``. ``chip_smoke.py``'s ``maml_step`` phase reports the peak
-    device memory of that step at config4's width (PERF.md)."""
+    With ``cfg.remat_inner`` too (the default), that graph holds each step
+    as one ``_Recomputed`` node that saved only the step's inputs: the
+    step's activations are freed in the forward and rebuilt once, by the
+    same ``one_step`` with ``create_graph=True``, when the outer backward
+    reaches it. Every model leaf and Meta-SGD rate is an input of the node
+    (a frozen ANIL leaf still shapes the inner gradient); only the updated
+    leaves are its outputs, the others are handed on outside it. The clip scale
+    and the gates are constants in the recompute as in the forward, and the
+    support loss returned is the forward's. ``chip_smoke.py``'s
+    ``maml_step`` phase reports the peak device memory of the config4 step
+    with and without it (PERF.md)."""
     second_order = not cfg.first_order
 
-    def one_step(params, generator, batch, inner_scale, widen_scale):
-        model, lr = split_lr(params)
+    def masks(model, widen_scale):
+        """(the adapt filter's mask, the leaves an inner step updates)."""
         mask = (adapt_mask(model, cfg.adapt_filter) if cfg.adapt_filter
                 else dict.fromkeys(model, True))
-        widen = widen_scale is not None
+        return mask, [k for k in model if mask[k] or widen_scale is not None]
+
+    def one_step(params, step_seed, batch, inner_scale, widen_scale,
+                 create_graph):
+        model, lr = split_lr(params)
+        mask, wrt = masks(model, widen_scale)
+        generator = make_generator(step_seed, _device(batch))
         with torch.enable_grad():
             # FOMAML detaches the INPUT of the inner gradient; MAML takes it
             # at the live tensors (a leaf the caller holds without
             # requires_grad carries no outer gradient either way)
-            at = {k: (v if second_order and v.requires_grad
-                      else v.detach().requires_grad_(mask[k] or widen))
+            at = {k: (v if create_graph and v.requires_grad
+                      else v.detach().requires_grad_(k in wrt))
                   for k, v in model.items()}
-            wrt = [k for k in model if mask[k] or widen]
             loss, _ = loss_fn(at, batch, generator, train)
             gs = torch.autograd.grad(loss, [at[k] for k in wrt],
-                                     create_graph=second_order,
+                                     create_graph=create_graph,
                                      allow_unused=True)
         grads = {k: torch.zeros_like(at[k]) if g is None else g
                  for k, g in zip(wrt, gs)}
@@ -183,7 +207,7 @@ def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
             grads = {k: g * float(inner_scale) for k, g in grads.items()}
         new_model = {}
         for k, p in model.items():
-            if not (mask[k] or widen):
+            if k not in grads:
                 new_model[k] = p
                 continue
             g = grads[k]
@@ -196,18 +220,76 @@ def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
             return new_model, loss.detach()
         return {"model": new_model, "inner_lr": lr}, loss.detach()
 
+    def recomputed_step(params, step_seed, batch, inner_scale, widen_scale):
+        """``one_step`` of second order as one ``_Recomputed`` node."""
+        flat = flatten(params)
+        model, lr = split_lr(params)
+        keys = masks(model, widen_scale)[1]
+
+        def run(leaves, create_graph):
+            tree = unflatten_like(params, dict(zip(flat, leaves)))
+            new, loss = one_step(tree, step_seed, batch, inner_scale,
+                                 widen_scale, create_graph)
+            new_model = split_lr(new)[0]
+            return [new_model[k] for k in keys], loss
+
+        *outs, loss = _Recomputed.apply(run, *flat.values())
+        new_model = {**model, **dict(zip(keys, outs))}
+        if lr is None:
+            return new_model, loss
+        return {"model": new_model, "inner_lr": lr}, loss
+
+    step_fn = (recomputed_step if second_order and cfg.remat_inner
+               else functools.partial(one_step, create_graph=second_order))
+
     def inner_adapt(params, support_batch, seed: int, inner_scale=None,
                     widen_scale=None):
-        dev = _device(support_batch)
         losses = []
         for i in range(cfg.inner_steps):
-            params, loss = one_step(params,
-                                    make_generator(fold_in(seed, i), dev),
-                                    support_batch, inner_scale, widen_scale)
+            params, loss = step_fn(params, fold_in(seed, i), support_batch,
+                                   inner_scale, widen_scale)
             losses.append(loss)
         return params, torch.stack(losses)
 
     return inner_adapt
+
+
+class _Recomputed(torch.autograd.Function):
+    """One inner step that keeps only its inputs (the reference's
+    ``jax.checkpoint`` of ``one_step``). ``run(leaves, create_graph) ->
+    (updated leaves, support loss)`` is the step: the forward runs it with
+    a first-order gradient and no graph; the backward runs it again on
+    fresh leaves with ``create_graph=True`` and returns the VJP of its
+    updated leaves, which differentiates the inner gradient (K2 launches
+    once more there, and K2b once in the VJP)."""
+
+    @staticmethod
+    def forward(ctx, run, *leaves):
+        outs, loss = run(leaves, False)
+        ctx.run = run
+        ctx.save_for_backward(*leaves)
+        ctx.mark_non_differentiable(loss)
+        ctx.set_materialize_grads(False)
+        return (*outs, loss)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cotangents):
+        needs = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            live = [x.detach().requires_grad_(need)
+                    for x, need in zip(ctx.saved_tensors, needs)]
+            outs, _ = ctx.run(live, True)
+        pairs = [(o, c) for o, c in zip(outs, cotangents[:-1])
+                 if c is not None and o.requires_grad]
+        wrt = [x for x in live if x.requires_grad]
+        if not (pairs and wrt):
+            return (None,) * (1 + len(live))
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                         [c for _, c in pairs],
+                                         allow_unused=True))
+        return (None, *(next(grads) if x.requires_grad else None
+                        for x in live))
 
 
 def _preprocess(preprocess_fn, support, query, seed, dev):

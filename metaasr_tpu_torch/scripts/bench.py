@@ -43,8 +43,10 @@ Experiment hooks (environment; not set by default; '' and '0' are off):
 - ``BENCH_GRAD_DTYPE=float32``: the fp32 meta-step (default bfloat16);
 - ``BENCH_PROFILE=1``: a ``torch.profiler`` trace of 5 steps in
   ``profiles/bench_trace.json`` at the root of the checkout;
-- ``BENCH_NO_REMAT=1``: accepted, no effect (the port's inner loop does
-  not recompute, ``meta/maml.py``);
+- ``BENCH_NO_REMAT=1``: keep each inner step's activations instead of
+  recomputing them in the outer backward (``MetaAlgoConfig.remat_inner``;
+  it acts only with ``BENCH_SECOND_ORDER=1``: first order never
+  recomputes);
 - ``BENCH_CTC_IMPL=scan``: raises ``NotImplementedError``.
 """
 
@@ -108,6 +110,7 @@ def algo_config():
     return MetaAlgoConfig(
         inner_lr=1e-2, inner_steps=INNER_STEPS,
         first_order=not _env_flag("BENCH_SECOND_ORDER"),
+        remat_inner=not _env_flag("BENCH_NO_REMAT"),
         adapt_filter=tuple(
             s for s in os.environ.get("BENCH_ADAPT_FILTER", "").split(",")
             if s.strip()) or None,

@@ -61,8 +61,9 @@ reference's tables):
     on it.
 
 Launches on the card, from the code: a FOMAML or Meta-SGD step runs K1
-2·M times and K2 M·(inner+1) times; a MAML step adds M·inner K2b; a
-Reptile step runs K1 2·M and K2 M·inner (its inner steps take support and
+2·M times and K2 M·(inner+1) times; a MAML step runs K1 2·M, K2
+M·(2·inner+1) (``meta.remat_inner`` recomputes each inner step once) and
+K2b M·inner; a Reptile step runs K1 2·M and K2 M·inner (its inner steps take support and
 query at once, and it takes no query backward); a multitask step one K1
 and one K2; each ``meta_adapt`` one K1 and 5 K2; each decode batch (up to
 32 utterances, greedy or beam) one K1.

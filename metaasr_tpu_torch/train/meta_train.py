@@ -144,6 +144,7 @@ def algo_config(cfg: Config) -> MetaAlgoConfig:
     return MetaAlgoConfig(inner_lr=cfg.meta.inner_lr,
                           inner_steps=cfg.meta.inner_steps,
                           first_order=(algo != "maml"),
+                          remat_inner=cfg.meta.remat_inner,
                           grad_dtype=(None if cfg.meta.grad_dtype == "float32"
                                       else cfg.meta.grad_dtype),
                           inner_clip=cfg.meta.inner_clip,
@@ -420,6 +421,7 @@ class MetaASRTrainer:
             self.task.loss_fn,
             MetaAlgoConfig(inner_lr=m.inner_lr,
                            inner_steps=adapt_steps or m.adapt_steps,
+                           first_order=True, remat_inner=False,
                            inner_clip=m.inner_clip,
                            # staged ANIL trains toward full-body adaptation;
                            # meta-test adapts every leaf
