@@ -5096,7 +5096,17 @@ DP_LOSS_RTOL = (1e-6, 1e-4)  # step 1's meta_loss, later steps'
 DP_NORM_RTOL = 1e-5         # step 1's grad_norm: a wrong 1 / M doubles it
 DP_PARAM_ATOL = 1e-5
 DP_TIMEOUT_S = 120          # the rendezvous and every collective
-DP_BUDGET_S = 45
+DP_BUDGET_S = 85
+# the data axis (pair c): --mesh-tasks 1 on the DP_WORLD ranks, each task's
+# 4 + 4 shots split 2 + 2. Its inner gradients are sums of bf16 partials
+# rounded once each, one process's whole gradient is rounded once: they part
+# by bf16 rounding, U = 2^-8 (PERF.md, phase 27, written before the run)
+DPD_LOSS_RTOL = 2.0 ** -8    # step 1's meta_loss: U
+DPD_NORM_RTOL = 2.0 ** -7    # step 1's grad_norm: 2U (two roundings)
+# Adam's |m^/sqrt(v^)| is 1 at step 1 and at most sqrt(a^2/A + b^2/B) =
+# 1.00136 at step 2 (Cauchy-Schwarz; a, b, A, B: the bias-corrected weights
+# of g1, g2 in m^ and v^ at b1 .9, b2 .999), whatever the gradients
+DPD_ADAM_RATIO = 1.0014
 
 
 def dp_config(data: str):
@@ -5129,12 +5139,13 @@ def captured_meta_train():
         MetaASRTrainer.meta_train = plain
 
 
-def dp_cli(torch, argv, workdir: str) -> dict:
+def dp_cli(torch, argv, workdir: str, with_init: bool = False) -> dict:
     """``cli.main(argv)`` (a ``--mode train`` run) from zeroed counts under
     deterministic algorithms -> final parameters (on the cpu) and state,
     launches, gradient all-reduces, state broadcasts, the records logged
     in ``workdir`` (rank 0's, earlier runs' too), ms a step from them, peak
-    memory, the store, the workdir's entries."""
+    memory, the store, the workdir's entries; ``with_init``: the seeded
+    parameters the run started from too (on the cpu)."""
     from metaasr_tpu_torch.parallel import broadcast_state, reduce_outer
 
     torch.cuda.synchronize()
@@ -5156,7 +5167,10 @@ def dp_cli(torch, argv, workdir: str) -> dict:
             recs = [r for r in map(json.loads, f) if "meta_loss" in r]
     m = tr.cfg.meta
     per_step = m.tasks_per_batch * (m.k_support * m.inner_steps + m.k_query)
+    init = ({k: v.cpu() for k, v in tr.task.init_params(
+        tr.cfg.train.seed).items()} if with_init else None)
     return {"params": {k: v.detach().cpu() for k, v in state["params"].items()},
+            "init": init,
             "state": state, "step": state["step"], "launches": counts,
             "all_reduces": reduce_outer.all_reduces,
             "broadcasts": broadcast_state.calls, "records": recs,
@@ -5244,10 +5258,12 @@ def dp_worker(rank: int, d: str, pair: str) -> int:
     card. Joins its pair's group, warms up on a throwaway trainer, waits
     for ``DIR/go_<pair>``, then runs the CLI: pair ``a`` trains
     ``DP_STEPS`` steps from ``DIR/dp_config.yaml``, pair ``b`` (fresh
-    processes) resumes rank 0's workdir by ``DP_RESUME_STEPS``; rank 1 has
-    a workdir of its own, which it must never create. Writes
-    ``DIR/<pair>_rank<RANK>.pt`` with the wall-clock times of each stage.
-    Returns 3 if the parent goes away first."""
+    processes) resumes rank 0's workdir by ``DP_RESUME_STEPS``, pair ``c``
+    trains ``DP_STEPS`` steps with ``--mesh-tasks 1``, a data axis of
+    ``DP_WORLD``, recording the batch of every K2 launch and its inner
+    all-reduces; rank 1 has a workdir of its own, which it must never
+    create. Writes ``DIR/<pair>_rank<RANK>.pt`` with the wall-clock times
+    of each stage. Returns 3 if the parent goes away first."""
     stamps = {"started": time.time()}
     import gc
 
@@ -5257,7 +5273,8 @@ def dp_worker(rank: int, d: str, pair: str) -> int:
     from metaasr_tpu_torch.cli import make_trainer
     from metaasr_tpu_torch.config import load_config
     from metaasr_tpu_torch.device import resolve_device
-    from metaasr_tpu_torch.parallel import initialize
+    from metaasr_tpu_torch.ops import ctc_kernel
+    from metaasr_tpu_torch.parallel import initialize, reduce_inner
     from metaasr_tpu_torch.scripts.multihost_trainer_smoke import train_argv
     from metaasr_tpu_torch.train import meta_train
 
@@ -5291,23 +5308,41 @@ def dp_worker(rank: int, d: str, pair: str) -> int:
                 return 3
             time.sleep(0.02)
         stamps["go_seen"] = time.time()
-        workdir = os.path.join(d, "wd_gloo" if rank == 0
+        workdir = os.path.join(d, ("wd_gloo" if pair != "c" else
+                                   "wd_gloo_data") if rank == 0
                                else f"wd_gloo_rank{rank}{pair}")
-        bcast = {}
+        bcast, k2_rows = {}, []
         if pair == "a":
             argv = train_argv(config, workdir, DP_STEPS, DEVICE, DP_WORLD)
-        else:
+        elif pair == "b":
             argv = train_argv(None, workdir, DP_STEPS + DP_RESUME_STEPS,
                               DEVICE, DP_WORLD)
             meta_train.broadcast_state = checked_broadcast(
                 torch, os.path.join(d, "wd_gloo", "ckpts",
                                     f"step_{DP_STEPS}.pt"), bcast)
+        else:
+            argv = train_argv(config, workdir, DP_STEPS, DEVICE, 1)
+            plain_args = ctc_kernel._launch_args
+
+            def launch_args(logp_z, tangent):
+                if not tangent:
+                    k2_rows.append(logp_z.shape[0])
+                return plain_args(logp_z, tangent)
+
+            ctc_kernel._launch_args = launch_args
+        inner_before = reduce_inner.all_reduces
         out = dp_cli(torch, argv, workdir)
         stamps["trained"] = time.time()
         out.pop("state")
         out["broadcast_state"] = bcast
-        if pair == "a":
-            n = sum(v.numel() for v in out["params"].values())
+        out["inner_all_reduces"] = reduce_inner.all_reduces - inner_before
+        out["k2_rows"] = k2_rows
+        if pair != "b":
+            # the outer all-reduce's size; on the data axis also an inner
+            # step's (every leaf adapts) with its support loss, over the
+            # same two ranks
+            n = sum(v.numel() for v in out["params"].values()) + (
+                pair == "c")
             out["allreduce"] = {"bytes": 4 * n,
                                 "ms": allreduce_ms(torch, n, group)}
             stamps["allreduce_timed"] = time.time()
@@ -5321,7 +5356,7 @@ def dp_worker(rank: int, d: str, pair: str) -> int:
 
 
 def start_data_parallel():
-    """Phase 27's corpus, its config and its two gloo pairs -> (the
+    """Phase 27's corpus, its config and its three gloo pairs -> (the
     TemporaryDirectory, {pair: processes}, {pair: log paths}). ``main``
     starts them before phase 26, so that their start-up (interpreter,
     CUDA context, rendezvous, warm-up) overlaps it; each pair waits for
@@ -5335,7 +5370,7 @@ def start_data_parallel():
                      words_per_utt=(2, 4), seed=0)
     save_config(dp_config(data), os.path.join(tmp.name, "dp_config.yaml"))
     procs, logs = {}, {}
-    for pair in ("a", "b"):
+    for pair in ("a", "b", "c"):
         logs[pair] = [os.path.join(tmp.name, f"{pair}_rank{r}.log")
                       for r in range(DP_WORLD)]
         procs[pair] = []
@@ -5376,8 +5411,12 @@ def phase_data_parallel(torch, smi, started=None):
     a fresh gloo pair resuming their run against the one process resumed
     the same way; exact launches, all-reduces and broadcasts, rank-0-only
     writes, the state each resumed rank holds against rank 0's checkpoint.
-    ``started``: ``start_data_parallel()``'s result, else the ranks start
-    here."""
+    Then the data axis: ``--mesh-tasks 1`` on a third gloo pair, each rank
+    running every task on 2 of its 4 + 4 shots, against the same one
+    process: bit-equal ranks, exact launches (K2 at B = 2), inner and outer
+    all-reduces, and meta_loss, grad_norm and parameters within the
+    bounds of bf16 rounding and Adam's step. ``started``:
+    ``start_data_parallel()``'s result, else the ranks start here."""
     import torch.distributed as dist
 
     from metaasr_tpu_torch.parallel import initialize
@@ -5418,7 +5457,8 @@ def phase_data_parallel(torch, smi, started=None):
             finally:
                 dist.destroy_process_group()
             wd = os.path.join(d, "wd_one")
-            one = dp_cli(torch, train_argv(config, wd, DP_STEPS, DEVICE), wd)
+            one = dp_cli(torch, train_argv(config, wd, DP_STEPS, DEVICE), wd,
+                         with_init=True)
             one_resumed = dp_cli(torch, train_argv(None, wd, end, DEVICE),
                                  wd)
             for run in (one, one_resumed):
@@ -5426,7 +5466,7 @@ def phase_data_parallel(torch, smi, started=None):
             # gates 2 and 3: the gloo pair, then the fresh pair resuming
             # its run, each waiting since it started
             ranks = {}
-            for pair in ("a", "b"):
+            for pair in ("a", "b", "c"):
                 t0, go = time.perf_counter(), time.time()
                 open(os.path.join(d, f"go_{pair}"), "w").close()
                 results = [os.path.join(d, f"{pair}_rank{r}.pt")
@@ -5474,7 +5514,7 @@ def phase_data_parallel(torch, smi, started=None):
             "broadcast_state": run.get("broadcast_state"),
             "stamps_s_from_go": run.get("stamps_s_from_go")}
 
-    (r0, r1), (b0, b1) = ranks["a"], ranks["b"]
+    (r0, r1), (b0, b1), (c0, c1) = ranks["a"], ranks["b"], ranks["c"]
     resumed = b0["records"][DP_STEPS:]       # rank 0's log: both pairs'
     one_tail = one_resumed["records"][DP_STEPS:]
     out["group_of_one_nccl"] = summary(nccl)
@@ -5504,7 +5544,39 @@ def phase_data_parallel(torch, smi, started=None):
                        **{f"dp_gloo_rank{r}": x["launches"]
                           for r, x in enumerate((r0, r1))},
                        **{f"dp_gloo_resumed_rank{r}": x["launches"]
-                          for r, x in enumerate((b0, b1))}}
+                          for r, x in enumerate((b0, b1))},
+                       **{f"dp_data_axis_rank{r}": x["launches"]
+                          for r, x in enumerate((c0, c1))}}
+    # the data axis against the one process: bf16 rounding bounds the
+    # losses; Adam moves an element by at most DPD_ADAM_RATIO * lr a step
+    # whatever the gradient, so two runs part by at most twice that, plus
+    # the fp32 rounding of each run's update (half an ulp a step)
+    from metaasr_tpu_torch.train.optimizer import make_optimizer
+
+    cfg3 = config3_train()[0]
+    lr = make_optimizer(cfg3.optimizer, cfg3.model.d_model).lr
+    biggest = max(float(v.abs().max()) for v in one["params"].values())
+    param_atol = (2 * DPD_ADAM_RATIO * sum(lr(t) for t in range(DP_STEPS))
+                  + DP_STEPS * 2.0 ** -23 * biggest)
+    d_gaps = gaps(c0["records"], one["records"])
+    out["data_axis"] = {
+        "mesh_tasks": 1, "data_axis": DP_WORLD,
+        "shots_a_rank": [m.k_support // DP_WORLD, m.k_query // DP_WORLD],
+        "ranks": [summary(x) | {"inner_all_reduces": x["inner_all_reduces"],
+                                "k2_rows": sorted(set(x["k2_rows"]))}
+                  for x in (c0, c1)],
+        "vs_one_process": d_gaps | {
+            "param_max_abs": worst(c0["params"], one["params"]),
+            "param_atol": param_atol,
+            "update_sign_agreement": update_signs(
+                torch, c0["params"], one["params"], one["init"]),
+            "meta_loss_rtol": DPD_LOSS_RTOL,
+            "grad_norm_rtol": DPD_NORM_RTOL},
+        "ranks_params_equal": params_equal(c0["params"], c1["params"]),
+        "inner_allreduce": c0["allreduce"],
+        "ms_per_step": {"ranks": [x["ms_per_step_logged"] for x in (c0, c1)],
+                        "one_process": one["ms_per_step_logged"]},
+        "peak_mem_gb_a_rank": [x["peak_mem_gb"] for x in (c0, c1)]}
     out["seconds"] = time.perf_counter() - t_phase
     out["budget_s"] = DP_BUDGET_S
     log(out)
@@ -5566,9 +5638,46 @@ def phase_data_parallel(torch, smi, started=None):
             or r1["workdir"] or b1["workdir"]):
         raise SystemExit(f"workdirs: rank 0 {r0['workdir']}, rank 1 "
                          f"{r1['workdir']}, {b1['workdir']}")
-    if any(x["store"] for x in (r0, r1, b0, b1, one, one_resumed, nccl)):
+    if any(x["store"] for x in (r0, r1, b0, b1, c0, c1, one, one_resumed,
+                                nccl)):
         raise SystemExit("a resident store was built")
+    per_task = m.inner_steps * DP_STEPS * m.tasks_per_batch
+    for r, x in enumerate((c0, c1)):
+        if x["launches"] != want(DP_STEPS, m.tasks_per_batch):
+            raise SystemExit(f"data-axis rank {r} launches {x['launches']}, "
+                             f"want {want(DP_STEPS, m.tasks_per_batch)}")
+        if (len(x["k2_rows"]) != x["launches"]["k2"]
+                or set(x["k2_rows"]) != {m.k_support // DP_WORLD}):
+            raise SystemExit(f"data-axis rank {r}: K2 at batches "
+                             f"{x['k2_rows']}")
+        if (x["inner_all_reduces"], x["all_reduces"]) != (per_task,
+                                                          DP_STEPS):
+            raise SystemExit(f"data-axis rank {r}: {x['inner_all_reduces']} "
+                             f"inner and {x['all_reduces']} outer "
+                             f"all-reduces, want {per_task} and {DP_STEPS}")
+    g = out["data_axis"]["vs_one_process"]
+    if not (out["data_axis"]["ranks_params_equal"]
+            and len(c0["records"]) == DP_STEPS and c1["records"] == []
+            and not c1["workdir"]
+            and g["meta_loss"][0] <= DPD_LOSS_RTOL
+            and g["grad_norm"][0] <= DPD_NORM_RTOL
+            and g["param_max_abs"] <= param_atol):
+        raise SystemExit(f"the data axis against one process: {g}, ranks' "
+                         "parameters equal "
+                         f"{out['data_axis']['ranks_params_equal']}")
     return out
+
+
+def update_signs(torch, got: dict, want: dict, start: dict) -> float:
+    """The share of elements whose update from ``start`` has the same sign
+    in ``got`` as in ``want`` (an element that moved in neither counts as
+    agreeing)."""
+    same = total = 0
+    for k, w in want.items():
+        a, b = torch.sign(got[k] - start[k]), torch.sign(w - start[k])
+        same += int((a == b).sum())
+        total += a.numel()
+    return same / total
 
 
 def dp_paths(dp, k) -> dict:

@@ -13,7 +13,7 @@
         [--export-decode auto|beam|greedy] [--lm-ckpt LM.npz --lm-weight W]
     python -m metaasr_tpu_torch.cli --mode serve --bundle DIR \
         --wav a.wav [b.wav ...]
-    torchrun --nproc-per-node N -m metaasr_tpu_torch.cli --mode train \
+    torchrun --nproc-per-node W -m metaasr_tpu_torch.cli --mode train \
         --mesh-tasks N --config CFG --data-dir DIR --workdir WD [...]
 
 ``train`` (the default) trains on the accents of ``--data-dir``
@@ -42,12 +42,16 @@ one the JAX package exported (``--mode export``) needs ``--config`` for the
 model dims, CMVN mode and beam options. Every mode runs on CUDA unless
 ``--device cpu`` is given.
 
-``--mesh-tasks N`` meta-trains data-parallel over N processes, one card
-each, started by torchrun: each rank runs M / N of a meta-batch's M tasks
-(``parallel.task_rows``) and the outer gradient is summed once a step. Rank
-0 alone resolves the config, writes the workdir (``config.yaml``,
-checkpoints, logs) and prints; the other ranks train its config. Started
-again on the same workdir, the ranks resume from rank 0's latest checkpoint.
+``--mesh-tasks N`` meta-trains data-parallel over the W processes torchrun
+starts, one card each, where N divides W: N task groups of W / N ranks,
+each group running M / N of a meta-batch's M tasks
+(``parallel.make_mesh``), and the outer gradient is summed once a step.
+With N below W each group's ranks split every task's shots under first
+order (the data axis: an inner step's gradient is summed over the group)
+and repeat the task under second order. Rank 0 alone resolves the
+config, writes the workdir (``config.yaml``, checkpoints, logs) and
+prints; the other ranks train its config. Started again on the same
+workdir, the ranks resume from rank 0's latest checkpoint.
 """
 
 from __future__ import annotations
@@ -114,14 +118,16 @@ def build_tokenizer(cfg: Config):
     raise ValueError(f"unknown vocab type {kind}")
 
 
-def make_trainer(cfg: Config, workdir: str, device=None, group=None):
+def make_trainer(cfg: Config, workdir: str, device=None, group=None,
+                 mesh_tasks: int | None = None):
     """(trainer, tokenizer) for the configured algo: ``MonoASRTrainer``
     (no), ``MultitaskASRTrainer`` (multi) or ``MetaASRTrainer`` (fomaml,
     maml, reptile). Held-out accents (``data.heldout_accents``) are kept out of
     the training pool; the baselines evaluate on a per-accent dev split
     (``data.dev_fraction``) or, without one, on the first held-out accent.
     ``group`` (``parallel.initialize()``'s) makes the meta-trainer data
-    parallel over tasks; the baselines take none."""
+    parallel, over ``mesh_tasks`` task groups (all of its ranks by
+    default); the baselines take none."""
     from metaasr_tpu_torch.data.dataset import load_accent_datasets
     from metaasr_tpu_torch.task import ASRTask
     from metaasr_tpu_torch.train.meta_train import MetaASRTrainer
@@ -154,7 +160,8 @@ def make_trainer(cfg: Config, workdir: str, device=None, group=None):
     task = ASRTask(cfg, tok.sos_eos_id, device=device)
     if algo in ("fomaml", "maml", "reptile"):
         return MetaASRTrainer(cfg, task, dsets, heldout, tok, workdir,
-                              device=device, group=group), tok
+                              device=device, group=group,
+                              mesh_tasks=mesh_tasks), tok
     dev = next(iter(heldout.values())) if heldout else None
     if cfg.data.dev_fraction > 0:
         # per-accent train/dev partition; the first accent's dev set scores
@@ -203,10 +210,11 @@ def main(argv=None):
                    help="shallow-fusion weight (0 = off); shorthand for "
                    "-o train.lm_weight=...")
     p.add_argument("--mesh-tasks", type=int, default=0,
-                   help="train with a meta algo: N processes on the task "
-                   "axis, one card each (no data axis), under torchrun "
-                   "--nproc-per-node N (its world size must be N); rank 0 "
-                   "alone writes the workdir")
+                   help="train with a meta algo over torchrun's W "
+                   "processes, one card each: N task groups of W / N ranks "
+                   "(N must divide W; below W, a group's ranks split each "
+                   "task's shots, the data axis); rank 0 alone writes the "
+                   "workdir")
     t = p.add_argument_group("train")
     t.add_argument("--algo",
                    choices=["no", "multi", "fomaml", "maml", "reptile"],
@@ -277,12 +285,13 @@ def main(argv=None):
 
 def _process_group(args):
     """The process group ``--mesh-tasks N`` asks for (``None``: one
-    process), made before the config is resolved. N processes on the task
-    axis train one run; ``parallel.initialize`` takes torchrun's
-    environment (gloo for ``--device cpu``, else NCCL on ``cuda:LOCAL_RANK``)
-    or returns the group its caller made, and raises where the rendezvous
-    fails. A multi-process environment without the flag is refused: each
-    process would train the whole run into one workdir."""
+    process), made before the config is resolved. W processes, N task
+    groups of W / N, train one run; ``parallel.initialize`` takes
+    torchrun's environment (gloo for ``--device cpu``, else NCCL on
+    ``cuda:LOCAL_RANK``) or returns the group its caller made, and raises
+    where the rendezvous fails. An N that does not divide W is refused, as
+    is a multi-process environment without the flag: each process would
+    train the whole run into one workdir."""
     from metaasr_tpu_torch import parallel
 
     n = args.mesh_tasks
@@ -294,11 +303,12 @@ def _process_group(args):
             f"{args.mode} runs in one process: drop the flag")
     if n and args.mode == "train":
         group = parallel.initialize(device=args.device)
-        if parallel.world_size(group) != n:
+        w = parallel.world_size(group)
+        if w % n:
             raise SystemExit(
-                f"--mesh-tasks {n} but the world size is "
-                f"{parallel.world_size(group)}: start N processes "
-                f"(torchrun --nproc-per-node {n})")
+                f"--mesh-tasks {n} but the world size is {w}: N = {n} "
+                f"task groups must divide the W = {w} processes (torchrun "
+                f"--nproc-per-node a multiple of {n})")
         return group
     world = parallel.launched_world_size()
     if world > 1:
@@ -400,7 +410,9 @@ def _train(args, cfg: Config, group=None) -> int:
     parallel.barrier(group)
     trainer, _ = make_trainer(cfg, args.workdir,
                               device=parallel.rank_device(args.device, group),
-                              group=group)
+                              group=group,
+                              mesh_tasks=(args.mesh_tasks if group is not None
+                                          else None))
     ctx = contextlib.nullcontext()
     if args.profile:
         from metaasr_tpu_torch.utils.profiling import trace

@@ -28,6 +28,7 @@ import numpy as np
 
 from metaasr_tpu_torch.frontend.fbank import num_frames
 from metaasr_tpu_torch.utils.padding import bucket_length
+from metaasr_tpu_torch.utils.rows import Rows
 
 
 # Waveform-length buckets (samples at 16 kHz): 1, 2, 4, 8, 16 s.
@@ -227,25 +228,41 @@ class TaskSampler:
             qry_idx.append(q_idx.astype(np.int32))
         return list(accents), np.stack(sup_idx), np.stack(qry_idx)
 
-    def sample(self, step: int, rows: slice | None = None) -> dict:
+    def sample(self, step: int, rows: slice | None = None,
+               shots: tuple[int, int] | None = None) -> dict:
         """Meta-batch for ``step``. ``rows``: collate only these task rows
-        (a rank's, ``parallel.task_rows``); the draw stays global and the
-        bucket shape is decided over all M rows, so every rank pads alike
-        and the ranks' rows together are the one-process batch."""
+        (a rank's task group's, ``parallel.Mesh.task_rows``); ``shots``:
+        (d, D), collate only the d-th of D equal slices of each task's
+        support and query shots (a rank's on the data axis). The draw
+        stays global and the bucket shape is decided over all M x (ks +
+        kq) utterances, so every rank pads alike and the ranks' rows
+        together are the one-process batch. With ``shots`` each part also
+        holds ``whole_token_lens`` [M, k]: the token counts of all k shots
+        of each task (from the metadata, no audio read), from which the
+        loss takes the whole task's denominators."""
         accents, sup_idx, qry_idx = self.sample_indices(int(step))
         num_samples, num_tokens = self.step_shape(accents, sup_idx, qry_idx)
         if rows is not None:
             accents = accents[rows]
             sup_idx, qry_idx = sup_idx[rows], qry_idx[rows]
-        sup, qry = [], []
-        for a, s_idx, q_idx in zip(accents, sup_idx, qry_idx):
-            ds = self.datasets[a]
-            sup.append(collate([ds[int(i)] for i in s_idx],
-                               num_samples, num_tokens))
-            qry.append(collate([ds[int(i)] for i in q_idx],
-                               num_samples, num_tokens))
-        return {"accents": accents, "support": _stack_batches(sup),
-                "query": _stack_batches(qry)}
+        parts = {"support": sup_idx, "query": qry_idx}
+        out = {"accents": accents}
+        for name, idx in parts.items():
+            picked = idx
+            if shots is not None:
+                (lo, hi), = Rows.part(*shots, idx.shape[1]).spans
+                picked = idx[:, lo:hi]
+            batches = []
+            for a, i_row in zip(accents, picked):
+                ds = self.datasets[a]
+                batches.append(collate([ds[int(i)] for i in i_row],
+                                       num_samples, num_tokens))
+            out[name] = _stack_batches(batches)
+            if shots is not None:
+                out[name]["whole_token_lens"] = np.stack(
+                    [np.minimum(self._meta[a][1][i_row], num_tokens)
+                     for a, i_row in zip(accents, idx)]).astype(np.int32)
+        return out
 
     def step_shape(self, accents, sup_idx, qry_idx) -> tuple[int, int]:
         """(num_samples, num_tokens) for this draw: the smallest buckets that

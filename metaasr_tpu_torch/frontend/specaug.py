@@ -6,27 +6,34 @@ numbers (mask widths and starts, the warp centre and shift) from a
 ``torch.Generator`` with the reference's distributions;
 :func:`apply_spec_augment` applies given draws. A test can therefore feed
 the draws ``jax.random`` made and compare with the reference exactly.
-Masked regions are set to 0 (the per-utterance CMVN mean).
+Masked regions are set to 0 (the per-utterance CMVN mean). Every draw is
+shaped by the batch; with a generator that carries a rank's rows of a
+whole batch (``utils.rows``) it is made at the whole batch's rows and cut
+to the rank's, so a rank masks its rows as one process would.
 """
 
 from __future__ import annotations
 
 import torch
 
+from metaasr_tpu_torch.utils.rows import draw
+
 
 def _draw_mask_axis(generator, valid: torch.Tensor, num_masks: int,
                     max_width: torch.Tensor):
     """[B] valid lengths -> (width [B, M], start [B, M]) int64: width ~
     U[0, max_width], start ~ U[0, max(valid - width, 1))."""
-    bsz = valid.shape[0]
-    dev = valid.device
-    raw_w = torch.randint(0, 1 << 30, (bsz, num_masks), generator=generator,
-                          device=dev)
+    shape = (valid.shape[0], num_masks)
+    raw_w = _randint(generator, 0, 1 << 30, shape, valid.device)
     w = raw_w % (torch.clamp_min(max_width.to(torch.int64), 0)[:, None] + 1)
     s_range = torch.clamp_min(valid.to(torch.int64)[:, None] - w, 1)
-    raw_s = torch.randint(0, 1 << 30, (bsz, num_masks), generator=generator,
-                          device=dev)
+    raw_s = _randint(generator, 0, 1 << 30, shape, valid.device)
     return w, raw_s % s_range
+
+
+def _randint(generator, low: int, high: int, shape, dev) -> torch.Tensor:
+    return draw(lambda s: torch.randint(low, high, s, generator=generator,
+                                        device=dev), shape, generator)
 
 
 def _keep_mask(length: int, width: torch.Tensor,
@@ -61,11 +68,11 @@ def draw_spec_augment(generator, feats_shape, feat_lens: torch.Tensor,
         lens = feat_lens.to(torch.float32)
         lo = float(time_warp)
         hi = torch.clamp_min(lens - time_warp, lo + 1.0)
-        u = torch.rand((bsz,), generator=generator, device=dev)
+        u = draw(lambda s: torch.rand(s, generator=generator, device=dev),
+                 (bsz,), generator)
         draws["warp_c"] = lo + u * (hi - lo)
-        draws["warp_shift"] = torch.randint(
-            -time_warp, time_warp + 1, (bsz,), generator=generator,
-            device=dev)
+        draws["warp_shift"] = _randint(generator, -time_warp, time_warp + 1,
+                                       (bsz,), dev)
     full = torch.full((bsz,), d, dtype=torch.int64, device=dev)
     draws["freq_w"], draws["freq_s"] = _draw_mask_axis(
         generator, full, num_freq_masks,

@@ -39,8 +39,19 @@ verbatim by the ASR task.
   ``parallel.reduce_outer`` sums the fp32 accumulators across processes
   (one all-reduce a step) before the cast to the parameters' dtype; the
   metrics come from every rank's per-task losses. The result is one
-  process's over all M tasks. Second-order MAML shards the same task axis
-  (the port has no data axis).
+  process's over all M tasks.
+- The data axis (``data``, a ``parallel.DataAxis``): a task group of D
+  ranks shares each task. Under first order each rank holds k / D of the
+  task's support and query shots; its loss divides by the whole task's
+  counts (the batch's ``whole_token_lens``), its generators carry its rows
+  (``utils.rows``), so its draws are one process's at those rows, and each
+  inner step sums the group's partial gradients and support losses in one
+  fp32 ``parallel.reduce_inner`` before the clip and the update, so the D
+  ranks hold bit-equal adapted parameters. The query loss a rank
+  back-propagates is its partial; ``reduce_outer`` sums the partials.
+  Second order runs the whole shots on every rank of the group, as the
+  reference shards the task axis alone there; data index 0 alone adds its
+  accumulators and losses to the outer sum, the others add zeros.
 - ``preprocess_fn`` (front-end + SpecAugment) runs once per task batch,
   outside the inner loop.
 - Meta-SGD needs no flag here: a ``{"model", "inner_lr"}`` tree updates
@@ -61,7 +72,12 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from metaasr_tpu_torch.parallel.distributed import reduce_outer, world_size
+from metaasr_tpu_torch.parallel.distributed import (
+    reduce_inner,
+    reduce_outer,
+    world_size,
+)
+from metaasr_tpu_torch.utils.rows import make_generator
 from metaasr_tpu_torch.utils.tree import flatten, unflatten_like
 from metaasr_tpu_torch.weights import flax_path
 
@@ -97,10 +113,6 @@ def fold_in(seed: int, *data: int) -> int:
     ss = np.random.SeedSequence([int(seed) & (2**63 - 1),
                                  *(int(d) for d in data)])
     return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
-
-
-def make_generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(int(seed))
 
 
 def split_lr(params):
@@ -142,6 +154,10 @@ def _device(batch: dict):
     return next(iter(batch.values())).device
 
 
+def _batch_rows(batch: dict) -> int:
+    return next(iter(batch.values())).shape[0]
+
+
 def _rounded(x: float, dtype: torch.dtype) -> float:
     """``x`` rounded to ``dtype``, as a Python float: multiplying a tensor
     by it equals the reference's weak-typed scalar product in that dtype,
@@ -152,11 +168,15 @@ def _rounded(x: float, dtype: torch.dtype) -> float:
 def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
                      train: bool = True) -> Callable:
     """Returns ``inner_adapt(params, support_batch, seed, inner_scale=None,
-    widen_scale=None) -> (adapted_params, support losses [inner_steps])``.
+    widen_scale=None, data=None, rows=None) -> (adapted_params, support
+    losses [inner_steps])``.
 
     ``inner_scale`` (0/1 gate of every inner update) and ``widen_scale``
     (0/1 gate of the updates of leaves outside ``adapt_filter``) are host
     numbers, constants to the outer gradient, as is the clip scale.
+    ``data`` (first order): ``support_batch`` is this rank's ``rows`` of
+    the task's, and each step's gradient and loss are the data axis's sums
+    (``reduce_inner``), taken before the clip.
 
     With ``cfg.first_order`` false the adapted parameters keep their graph
     back to ``params`` through every inner gradient (second-order MAML).
@@ -180,10 +200,10 @@ def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
         return mask, [k for k in model if mask[k] or widen_scale is not None]
 
     def one_step(params, step_seed, batch, inner_scale, widen_scale,
-                 create_graph):
+                 create_graph, data=None, rows=None):
         model, lr = split_lr(params)
         mask, wrt = masks(model, widen_scale)
-        generator = make_generator(step_seed, _device(batch))
+        generator = make_generator(step_seed, _device(batch), rows)
         with torch.enable_grad():
             # FOMAML detaches the INPUT of the inner gradient; MAML takes it
             # at the live tensors (a leaf the caller holds without
@@ -197,6 +217,12 @@ def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
                                      allow_unused=True)
         grads = {k: torch.zeros_like(at[k]) if g is None else g
                  for k, g in zip(wrt, gs)}
+        loss = loss.detach()
+        if data is not None:
+            # the whole task's gradient and loss: the group's partials
+            # summed in fp32, cast once to the working dtype
+            *summed, loss = reduce_inner([*grads.values(), loss], data)
+            grads = {k: g.to(grads[k].dtype) for k, g in zip(grads, summed)}
         if cfg.inner_clip:
             gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                 for k, g in grads.items() if mask[k]))
@@ -217,11 +243,16 @@ def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
                 rate = rate * float(widen_scale)
             new_model[k] = p - rate * g
         if lr is None:
-            return new_model, loss.detach()
-        return {"model": new_model, "inner_lr": lr}, loss.detach()
+            return new_model, loss
+        return {"model": new_model, "inner_lr": lr}, loss
 
-    def recomputed_step(params, step_seed, batch, inner_scale, widen_scale):
-        """``one_step`` of second order as one ``_Recomputed`` node."""
+    def recomputed_step(params, step_seed, batch, inner_scale, widen_scale,
+                        data=None, rows=None):
+        """``one_step`` of second order as one ``_Recomputed`` node (no
+        data axis: second order runs a task's whole shots)."""
+        if data is not None or rows is not None:
+            raise ValueError("second order takes a task's whole shots: no "
+                             "data axis in its inner steps")
         flat = flatten(params)
         model, lr = split_lr(params)
         keys = masks(model, widen_scale)[1]
@@ -243,11 +274,12 @@ def make_inner_adapt(loss_fn: LossFn, cfg: MetaAlgoConfig,
                else functools.partial(one_step, create_graph=second_order))
 
     def inner_adapt(params, support_batch, seed: int, inner_scale=None,
-                    widen_scale=None):
+                    widen_scale=None, data=None, rows=None):
         losses = []
         for i in range(cfg.inner_steps):
             params, loss = step_fn(params, fold_in(seed, i), support_batch,
-                                   inner_scale, widen_scale)
+                                   inner_scale, widen_scale, data=data,
+                                   rows=rows)
             losses.append(loss)
         return params, torch.stack(losses)
 
@@ -292,14 +324,22 @@ class _Recomputed(torch.autograd.Function):
                         for x in live))
 
 
-def _preprocess(preprocess_fn, support, query, seed, dev):
+def _shot_rows(data, support: dict, query: dict):
+    """This rank's rows of a task's support and query shots on the data
+    axis (None, None without one)."""
+    if data is None:
+        return None, None
+    return data.rows(_batch_rows(support)), data.rows(_batch_rows(query))
+
+
+def _preprocess(preprocess_fn, support, query, seed, dev, rows=(None, None)):
     if preprocess_fn is None:
         return support, query
     with torch.no_grad():
-        return (preprocess_fn(support, make_generator(fold_in(seed, 2), dev),
-                              True),
-                preprocess_fn(query, make_generator(fold_in(seed, 3), dev),
-                              True))
+        return (preprocess_fn(support, make_generator(fold_in(seed, 2), dev,
+                                                      rows[0]), True),
+                preprocess_fn(query, make_generator(fold_in(seed, 3), dev,
+                                                    rows[1]), True))
 
 
 def _leaf_copies(params: dict, dtype: torch.dtype | None,
@@ -320,22 +360,28 @@ def _grad_dtype(cfg: MetaAlgoConfig):
 
 
 def _task_losses(loss_fn, inner_adapt, preprocess_fn, params, meta_batch,
-                 seed: int, inner_scale, widen_scale, task_offset: int = 0):
+                 seed: int, inner_scale, widen_scale, task_offset: int = 0,
+                 data=None):
     """Per task, in turn: (query loss at the adapted parameters, with its
     graph back to ``params``; support loss at inner step 0). Row m is
-    global task ``task_offset + m``, and seeded so."""
+    global task ``task_offset + m``, and seeded so. With ``data`` the rows
+    hold this rank's shots: the query loss is its partial, the support
+    loss the whole task's."""
     dev = _device(meta_batch["support"])
     for m in range(_num_tasks(meta_batch)):
         task_seed = fold_in(seed, task_offset + m)
-        support, query = _preprocess(
-            preprocess_fn, _task(meta_batch["support"], m),
-            _task(meta_batch["query"], m), task_seed, dev)
+        support, query = _task(meta_batch["support"], m), \
+            _task(meta_batch["query"], m)
+        rows = _shot_rows(data, support, query)
+        support, query = _preprocess(preprocess_fn, support, query,
+                                     task_seed, dev, rows)
         adapted, s_loss = inner_adapt(params, support, fold_in(task_seed, 0),
-                                      inner_scale, widen_scale)
+                                      inner_scale, widen_scale, data,
+                                      rows[0])
         with torch.enable_grad():
             q_loss, _ = loss_fn(split_lr(adapted)[0], query,
-                                make_generator(fold_in(task_seed, 1), dev),
-                                True)
+                                make_generator(fold_in(task_seed, 1), dev,
+                                               rows[1]), True)
         yield q_loss, s_loss[0]
 
 
@@ -363,31 +409,36 @@ def make_meta_loss(loss_fn: LossFn, cfg: MetaAlgoConfig,
 def maml_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
                preprocess_fn: Callable | None = None):
     """Returns ``grad_fn(params, meta_batch, seed, inner_scale=None,
-    widen_scale=None, group=None, task_offset=0) -> (grads, metrics)``, the
-    outer gradient (FOMAML's, or MAML's with ``cfg.first_order`` false): the
-    gradient of ``make_meta_loss``'s loss, accumulated in fp32 one task at a
-    time so that one task's graph is alive at once.
-    ``meta_batch = {"support": {...}, "query": {...}}`` with a leading task
-    axis; ``grads`` has the structure and dtypes of ``params``. Under a
-    process ``group`` the batch holds this rank's rows, the first of them
-    global task ``task_offset``, and ``grads`` and ``metrics`` cover the
-    tasks of every rank."""
+    widen_scale=None, group=None, task_offset=0, data=None) -> (grads,
+    metrics)``, the outer gradient (FOMAML's, or MAML's with
+    ``cfg.first_order`` false): the gradient of ``make_meta_loss``'s loss,
+    accumulated in fp32 one task at a time so that one task's graph is
+    alive at once. ``meta_batch = {"support": {...}, "query": {...}}``
+    with a leading task axis; ``grads`` has the structure and dtypes of
+    ``params``. Under a process ``group`` the batch holds this rank's task
+    group's rows, the first of them global task ``task_offset``, and
+    ``grads`` and ``metrics`` cover every task. With ``data`` (a
+    ``parallel.DataAxis``) under first order the rows hold this rank's
+    shots of each task; under second order the whole shots."""
     inner_adapt = make_inner_adapt(loss_fn, cfg, train=True)
     dtype = _grad_dtype(cfg)
 
     def grad_fn(params, meta_batch, seed: int, inner_scale=None,
-                widen_scale=None, group=None, task_offset: int = 0):
+                widen_scale=None, group=None, task_offset: int = 0,
+                data=None):
         work = _leaf_copies(params, dtype, requires_grad=True)
         leaves = flatten(work)
         keys = [k for k, v in leaves.items() if v.requires_grad]
         acc = {k: torch.zeros_like(leaves[k], dtype=torch.float32)
                for k in keys}
-        m_tasks = _num_tasks(meta_batch) * world_size(group)
+        d = 1 if data is None else data.size
+        m_tasks = _num_tasks(meta_batch) * world_size(group) // d
+        shards = data if cfg.first_order else None
         q_losses, s_losses = [], []
         for q_loss, s_loss in _task_losses(loss_fn, inner_adapt,
                                            preprocess_fn, work, meta_batch,
                                            seed, inner_scale, widen_scale,
-                                           task_offset):
+                                           task_offset, shards):
             gs = torch.autograd.grad(q_loss / m_tasks,
                                      [leaves[k] for k in keys],
                                      allow_unused=True)
@@ -397,8 +448,17 @@ def maml_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
             q_losses.append(q_loss.detach())
             s_losses.append(s_loss)
         q, s = torch.stack(q_losses), torch.stack(s_losses)
+        if data is not None and data.index:
+            # what each rank of the group holds whole counts once: the
+            # support losses (summed in the inner steps), and under second
+            # order every value (each rank ran the whole task)
+            s = torch.zeros_like(s)
+            if shards is None:
+                q = torch.zeros_like(q)
+                acc = {k: torch.zeros_like(v) for k, v in acc.items()}
         if group is not None:
-            acc, every = reduce_outer(acc, {"query": q, "support": s}, group)
+            acc, every = reduce_outer(acc, {"query": q, "support": s}, group,
+                                      d)
             q, s = every["query"], every["support"]
         flat_p = flatten(params)
         grads = unflatten_like(params, {
@@ -417,15 +477,19 @@ def reptile_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
     inner steps run on support and query concatenated, and the outer
     "gradient" is the mean over tasks of ``params - adapted``. No query
     backward. The last inner-step loss is reported under the query keys.
-    ``group`` and ``task_offset`` as in ``maml_grads``: under a group the
-    ranks' deltas are summed in fp32 across processes and the mean, rounded
-    to the deltas' dtype as one process's mean is, covers every rank's
-    tasks."""
+    ``group``, ``task_offset`` and ``data`` as in ``maml_grads``: under a
+    group the ranks' deltas are summed in fp32 across processes and the
+    mean, rounded to the deltas' dtype as one process's mean is, covers
+    every task. On the data axis a rank's rows of the concatenation are
+    its support rows, then its query rows after the whole support set,
+    where one process's concatenation puts them; its D ranks hold the same
+    delta, which data index 0 alone adds."""
     inner_adapt = make_inner_adapt(loss_fn, cfg, train=True)
     dtype = _grad_dtype(cfg)
 
     def grad_fn(params, meta_batch, seed: int, inner_scale=None,
-                widen_scale=None, group=None, task_offset: int = 0):
+                widen_scale=None, group=None, task_offset: int = 0,
+                data=None):
         del inner_scale, widen_scale   # rejected for Reptile by algo_config
         work = _leaf_copies(params, dtype, requires_grad=False)
         m_tasks = _num_tasks(meta_batch)
@@ -433,12 +497,16 @@ def reptile_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
         deltas, first, last = [], [], []
         for m in range(m_tasks):
             task_seed = fold_in(seed, task_offset + m)
-            support, query = _preprocess(
-                preprocess_fn, _task(meta_batch["support"], m),
-                _task(meta_batch["query"], m), task_seed, dev)
+            support, query = _task(meta_batch["support"], m), \
+                _task(meta_batch["query"], m)
+            rows = _shot_rows(data, support, query)
+            support, query = _preprocess(preprocess_fn, support, query,
+                                         task_seed, dev, rows)
             both = {k: torch.cat([support[k], query[k]], dim=0)
                     for k in support}
-            adapted, losses = inner_adapt(work, both, fold_in(task_seed, 0))
+            adapted, losses = inner_adapt(
+                work, both, fold_in(task_seed, 0), data=data,
+                rows=None if data is None else rows[0] + rows[1])
             fw, fa = flatten(work), flatten(adapted)
             deltas.append({k: fw[k] - fa[k] for k in fw})
             first.append(losses[0])
@@ -450,9 +518,14 @@ def reptile_grads(loss_fn: LossFn, cfg: MetaAlgoConfig,
                     for k in flat_p}
         else:
             acc = {k: sum(d[k].float() for d in deltas) for k in flat_p}
+            size = 1 if data is None else data.size
+            if data is not None and data.index:
+                acc = {k: torch.zeros_like(v) for k, v in acc.items()}
+                first_t, last_t = (torch.zeros_like(first_t),
+                                   torch.zeros_like(last_t))
             acc, every = reduce_outer(acc, {"first": first_t,
-                                            "last": last_t}, group)
-            m_all = m_tasks * world_size(group)
+                                            "last": last_t}, group, size)
+            m_all = m_tasks * world_size(group) // size
             mean = {k: (acc[k] / m_all).to(deltas[0][k].dtype)
                     for k in flat_p}
             first_t, last_t = every["first"], every["last"]

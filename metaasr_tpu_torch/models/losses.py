@@ -35,11 +35,17 @@ def prepare_decoder_targets(tokens: torch.Tensor, token_lens: torch.Tensor,
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
                          mask: torch.Tensor, smoothing: float = 0.1,
-                         normalize: str = "tokens") -> torch.Tensor:
+                         normalize: str = "tokens",
+                         whole=None) -> torch.Tensor:
     """KL(smoothed one-hot || softmax(logits)) over masked positions: the
     smoothed target puts (1-eps) on the label and eps/(V-1) elsewhere; the
     entropy constant is kept (a true KL). Averaged over valid positions
-    (``normalize='tokens'``) or over utterances (``'batch'``)."""
+    (``normalize='tokens'``) or over utterances (``'batch'``).
+
+    ``whole``: (rows, valid positions) of the whole batch these rows are a
+    share of (a rank's shots on the data axis, ``whole_counts``): the sum
+    is then divided by the whole batch's count, so the shares' losses add
+    up to the whole batch's."""
     vocab = logits.shape[-1]
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     on = 1.0 - smoothing
@@ -50,24 +56,45 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     xent = -(on * tgt_logp + off * (logp.sum(dim=-1) - tgt_logp))
     kl = torch.where(mask, xent - q_entropy, 0.0)
     if normalize == "tokens":
-        return kl.sum() / torch.clamp_min(mask.sum(), 1)
-    return kl.sum() / logits.shape[0]
+        count = mask.sum() if whole is None else whole[1]
+        return kl.sum() / torch.clamp_min(count, 1)
+    return kl.sum() / (logits.shape[0] if whole is None else whole[0])
+
+
+def whole_counts(batch: dict):
+    """(rows, valid decoder positions) of the whole batch a rank's share
+    ``batch`` belongs to, from its ``whole_token_lens`` (every row's token
+    count; ``sampler.TaskSampler.sample(shots=)``) -> None for a batch
+    that is whole."""
+    lens = batch.get("whole_token_lens")
+    if lens is None:
+        return None
+    return lens.shape[0], (lens.to(torch.int64) + 1).sum()
+
+
+def batch_mean(per_row: torch.Tensor, whole=None) -> torch.Tensor:
+    """The mean over the batch of per-row losses; of a share, its rows'
+    sum over the whole batch's rows."""
+    return per_row.mean() if whole is None else per_row.sum() / whole[0]
 
 
 def joint_ctc_attention_loss(outputs: dict, tokens: torch.Tensor,
                              token_lens: torch.Tensor, sos_eos_id: int,
                              ctc_weight: float = 0.3,
                              label_smoothing: float = 0.1,
-                             ctc_loss_fn=None):
+                             ctc_loss_fn=None, whole=None):
     """outputs: dict from ``TransformerASR.forward`` (teacher-forced with
     the same ``prepare_decoder_targets`` inputs). Returns (scalar loss,
-    metrics). ``ctc_loss_fn`` selects the CTC backend (scan or K2)."""
+    metrics). ``ctc_loss_fn`` selects the CTC backend (scan or K2).
+    ``whole`` (``whole_counts``): these rows are a share of a batch, and
+    both terms divide by the whole batch's counts."""
     ctc_loss_fn = ctc_loss_fn or ctc_loss
     lp = torch.log_softmax(outputs["ctc_logits"].to(torch.float32), dim=-1)
-    l_ctc = ctc_loss_fn(lp, outputs["enc_lens"], tokens, token_lens).mean()
+    l_ctc = batch_mean(ctc_loss_fn(lp, outputs["enc_lens"], tokens,
+                                   token_lens), whole)
     _, tokens_out, out_mask = prepare_decoder_targets(tokens, token_lens,
                                                       sos_eos_id)
     l_att = label_smoothing_loss(outputs["att_logits"], tokens_out, out_mask,
-                                 label_smoothing)
+                                 label_smoothing, whole=whole)
     loss = ctc_weight * l_ctc + (1.0 - ctc_weight) * l_att
     return loss, {"loss": loss, "ctc_loss": l_ctc, "att_loss": l_att}

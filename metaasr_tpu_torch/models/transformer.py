@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from metaasr_tpu_torch.utils.padding import make_non_pad_mask, subsampled_lengths
+from metaasr_tpu_torch.utils.rows import draw
 
 NEG_INF = -1e9  # additive mask bias (fp32-safe through softmax)
 LN_EPS = 1e-6   # Flax LayerNorm's epsilon (torch's default is 1e-5)
@@ -67,7 +68,8 @@ def causal_mask_bias(q_len: int, k_len: int, offset: int = 0,
 class Dropout(nn.Module):
     """Flax's ``nn.Dropout``: keep with probability 1-rate and scale by
     1/(1-rate) when training; the identity otherwise or at rate 0. Masks
-    come from the caller's ``torch.Generator``."""
+    come from the caller's ``torch.Generator``, drawn at the whole batch's
+    rows where it carries a rank's (``utils.rows``)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -78,7 +80,8 @@ class Dropout(nn.Module):
         if not train or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=generator, device=x.device)
+        u = draw(lambda s: torch.rand(s, generator=generator,
+                                      device=x.device), x.shape, generator)
         return torch.where(u < keep, x / keep, 0.0).to(x.dtype)
 
 

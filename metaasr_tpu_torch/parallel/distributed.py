@@ -1,33 +1,48 @@
-"""Process groups for the task-axis data-parallel meta-step (counterpart of
-``metaasr_tpu/parallel/distributed.py``).
+"""Process groups for the data-parallel meta-step (counterpart of
+``metaasr_tpu/parallel/distributed.py`` and ``mesh.py``).
 
-W processes each run M / W of a meta-batch's M tasks on replicated state.
-Each process makes one call before it builds a trainer:
+W processes run a meta-batch of M tasks on replicated state, laid out as
+the reference's ``make_mesh(num_task=N)`` lays out its devices: N task
+groups of D = W / N ranks (``Mesh``). Rank r is in task group r // D, which
+runs M / N of the tasks, at data index r % D. Each process makes one call
+before it builds a trainer:
 
     from metaasr_tpu_torch.parallel import initialize
     group = initialize()   # None in one process; torchrun's env otherwise
 
-and hands the group to ``MetaASRTrainer(..., group=group)``. A meta-step
-then has one collective of its outer gradient: ``reduce_outer`` sums the
-ranks' fp32 accumulators (each task's query loss already divided by the
-global M) in one ``all_reduce``, and all-gathers the per-task losses, so
-the gradient and the metrics are those of one process running all M tasks,
-up to the order of the fp32 sums.
+and hands the group to ``MetaASRTrainer(..., group=group, mesh_tasks=N)``
+(N = W when not given: the task axis alone). A meta-step then has one
+collective of its outer gradient: ``reduce_outer`` sums the ranks' fp32
+accumulators (each task's query loss already divided by the global M) in
+one ``all_reduce``, and all-gathers the per-task losses, so the gradient
+and the metrics are those of one process running all M tasks, up to the
+order of the fp32 sums.
+
+With D > 1 (the data axis) under first order each rank of a group runs
+k / D of every task's k support and query shots: each inner step's
+gradient is the sum of the group's partial gradients, taken by one fp32
+``all_reduce`` over the group's ``DataAxis`` (``reduce_inner``), so the D
+ranks take the same inner update and hold bit-equal adapted parameters.
+Second order runs the task's whole shots on each of the D ranks, as the
+reference shards its task axis alone there.
 
 ``task_rows`` is ``host_local_slice``: the draw of a step stays global and
-each rank collates only its rows (``TaskSampler.sample(step, rows=)``).
-``broadcast_state`` hands rank 0's restored train state to every rank when
-a group's run resumes: only rank 0 writes and reads the workdir.
+each rank collates only its rows (``TaskSampler.sample(step, rows=,
+shots=)``). ``broadcast_state`` hands rank 0's restored train state to
+every rank when a group's run resumes: only rank 0 writes and reads the
+workdir.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 
+from metaasr_tpu_torch.utils.rows import Rows
 from metaasr_tpu_torch.utils.tree import flatten, unflatten_like
 
 
@@ -111,29 +126,124 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
     return dist.group.WORLD
 
 
-def task_rows(num_tasks: int, group) -> slice:
-    """The rows of the meta-batch's task axis this rank runs: the r-th of W
-    equal slices, all of them without a group. Raises where W does not
-    divide ``num_tasks`` (the reference drops the remainder rows)."""
+def task_rows(num_tasks: int, group, num_task: int | None = None) -> slice:
+    """The rows of the meta-batch's task axis this rank runs: those of its
+    task group, the (r // D)-th of ``num_task`` = N equal slices (N = W by
+    default, one rank a group), all of them without a group. Raises where
+    N does not divide ``num_tasks`` (the reference drops the remainder
+    rows)."""
     w, r = world_size(group), rank(group)
-    if num_tasks % w:
+    n = w if num_task is None else num_task
+    if num_tasks % n:
+        axis = ("the world size" if n == w
+                else f"the task axis (--mesh-tasks {n})")
         raise ValueError(f"{num_tasks} tasks a meta-batch do not split over "
-                         f"{w} processes; make meta.tasks_per_batch a "
-                         "multiple of the world size")
-    per = num_tasks // w
-    return slice(r * per, (r + 1) * per)
+                         f"{n} task groups; make meta.tasks_per_batch a "
+                         f"multiple of {axis}")
+    per, g = num_tasks // n, r // (w // n)
+    return slice(g * per, (g + 1) * per)
 
 
-def reduce_outer(acc: dict, per_task: dict, group) -> tuple[dict, dict]:
+@dataclass(frozen=True)
+class DataAxis:
+    """A rank's place on the data axis: ``group`` holds the ``size`` ranks
+    of its task group, which split each task's shots, and ``index`` is its
+    place among them."""
+
+    group: object
+    size: int
+    index: int
+
+    def rows(self, count: int) -> Rows:
+        """This rank's rows of a whole batch of which it holds ``count``."""
+        return Rows.part(self.index, self.size, count * self.size)
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The ('task', 'data') layout of a run: ``group`` (the world's; None
+    in one process) split into ``num_task`` task groups; ``data`` is this
+    rank's ``DataAxis``, None where a group is one rank."""
+
+    group: object
+    num_task: int
+    data: DataAxis | None
+
+    def task_rows(self, num_tasks: int) -> slice:
+        return task_rows(num_tasks, self.group, self.num_task)
+
+    def local_batch(self, meta_batch: dict, split_shots: bool = True) -> dict:
+        """This rank's part of a whole meta-batch ``{"support": {...},
+        "query": {...}}`` of [M, k, ...] arrays or tensors, as
+        ``TaskSampler.sample(rows=, shots=)`` collates it: its task group's
+        tasks and, on the data axis with ``split_shots`` (first order), its
+        shots of each, with every shot's ``whole_token_lens`` beside them."""
+        rows = self.task_rows(next(iter(meta_batch["support"].values()))
+                              .shape[0])
+        out = {}
+        for part, batch in meta_batch.items():
+            local = {k: v[rows] for k, v in batch.items()}
+            if self.data is not None and split_shots:
+                k = local["token_lens"].shape[1]
+                shots = Rows.part(self.data.index, self.data.size, k)
+                (lo, hi), = shots.spans
+                local = {n: v[:, lo:hi] for n, v in local.items()}
+                local["whole_token_lens"] = batch["token_lens"][rows]
+            out[part] = local
+        return out
+
+
+def make_mesh(group, num_task: int | None = None) -> Mesh:
+    """The reference's ``make_mesh(num_task)`` over the W ranks of
+    ``group``: ``np.arange(W).reshape(num_task, W // num_task)``, N = W by
+    default (no data axis). With D = W / N > 1 every rank calls
+    ``dist.new_group`` for each task group's ranks, in the same order, and
+    keeps its own. Raises where N does not divide W."""
+    w, r = world_size(group), rank(group)
+    n = w if num_task is None else int(num_task)
+    if n < 1 or w % n:
+        raise ValueError(f"a task axis of {n} does not divide the world "
+                         f"size {w}")
+    d = w // n
+    data = None
+    if d > 1:
+        groups = [dist.new_group(list(range(g * d, (g + 1) * d)))
+                  for g in range(n)]
+        data = DataAxis(groups[r // d], d, r % d)
+    return Mesh(group, n, data)
+
+
+def reduce_inner(tensors: list, data: DataAxis) -> list:
+    """The one collective of an inner step on the data axis -> each of
+    ``tensors`` summed over the task group's ranks, in fp32: they travel
+    cast to fp32 in one contiguous buffer, one ``all_reduce(SUM)``, and
+    come back as fp32 views of it (the caller casts once to its working
+    dtype). Every rank gets the same bits, so the group's ranks take the
+    same update. ``reduce_inner.all_reduces`` counts the calls."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=data.group)
+    reduce_inner.all_reduces += 1
+    return [p.view(t.shape) for p, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)]
+
+
+reduce_inner.all_reduces = 0
+
+
+def reduce_outer(acc: dict, per_task: dict, group,
+                 data_size: int = 1) -> tuple[dict, dict]:
     """The one collective of a data-parallel meta-step -> ({name: summed
-    accumulator}, {name: [M] per-task values of every rank}).
+    accumulator}, {name: [M] per-task values}).
 
     ``acc``: the rank's fp32 outer-gradient accumulators, flattened into one
     contiguous buffer for one ``all_reduce(SUM)`` and unflattened again.
-    ``per_task``: [M / W] tensors (the per-task losses), stacked for one
-    ``all_gather`` and concatenated in rank order, so they list the tasks
-    as one process does; each comes back in its own dtype.
-    ``reduce_outer.all_reduces`` counts the gradient all-reduces."""
+    ``per_task``: [M / N] tensors (the per-task losses), stacked for one
+    ``all_gather``; each task group's ``data_size`` = D values of a task
+    are summed (a data axis's ranks hold partial losses, or the whole on
+    data index 0 and zeros elsewhere), then the groups are concatenated in
+    rank order, so they list each task once, as one process does; each
+    comes back in its own dtype. ``reduce_outer.all_reduces`` counts the
+    gradient all-reduces."""
     keys = list(acc)
     flat = torch.cat([acc[k].reshape(-1) for k in keys])
     if flat.dtype != torch.float32:
@@ -144,10 +254,13 @@ def reduce_outer(acc: dict, per_task: dict, group) -> tuple[dict, dict]:
     parts = flat.split([acc[k].numel() for k in keys])
     summed = {k: p.view_as(acc[k]) for k, p in zip(keys, parts)}
     names = list(per_task)
-    local = torch.stack([per_task[n] for n in names])   # [L, M / W]
-    gathered = [torch.empty_like(local) for _ in range(world_size(group))]
+    local = torch.stack([per_task[n] for n in names])   # [L, M / N]
+    w = world_size(group)
+    gathered = [torch.empty_like(local) for _ in range(w)]
     dist.all_gather(gathered, local, group=group)
-    every = torch.cat(gathered, dim=1)
+    every = torch.stack(gathered).view(w // data_size, data_size,
+                                       *local.shape).sum(1)
+    every = every.transpose(0, 1).reshape(len(names), -1)
     return summed, {n: every[i].to(per_task[n].dtype)
                     for i, n in enumerate(names)}
 

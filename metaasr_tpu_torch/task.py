@@ -31,14 +31,17 @@ from metaasr_tpu_torch.device import resolve_device
 from metaasr_tpu_torch.frontend.fbank import FbankParams, log_mel_fbank
 from metaasr_tpu_torch.frontend.specaug import spec_augment
 from metaasr_tpu_torch.models.losses import (
+    batch_mean,
     joint_ctc_attention_loss,
     prepare_decoder_targets,
+    whole_counts,
 )
 from metaasr_tpu_torch.models.transformer import TransformerASR
 from metaasr_tpu_torch.models.vgg_blstm import VGGBLSTMCTC
 from metaasr_tpu_torch.ops.ctc import ctc_loss
 from metaasr_tpu_torch.ops.ctc_kernel import ctc_loss_kernel
 from metaasr_tpu_torch.utils.padding import make_non_pad_mask
+from metaasr_tpu_torch.utils.rows import draw
 from metaasr_tpu_torch.weights import random_state_dict
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -136,8 +139,10 @@ class ASRTask:
         generator: dither before K1 and SpecAugment after CMVN."""
         f = self.cfg.frontend
         if train and f.dither and generator is not None:
-            audio = audio + f.dither * torch.randn(
-                audio.shape, generator=generator, device=audio.device)
+            audio = audio + f.dither * draw(
+                lambda s: torch.randn(s, generator=generator,
+                                      device=audio.device),
+                audio.shape, generator)
         if f.cmvn == "speaker" and cmvn_mean is not None:
             feats, feat_lens = self._raw_fbank(audio, audio_lens, "none")
             mask = make_non_pad_mask(feat_lens, feats.shape[1])[..., None]
@@ -177,7 +182,8 @@ class ASRTask:
         """Audio batch -> feature batch (fbank + CMVN + SpecAugment). In
         meta-training this runs once per task batch, outside the inner
         loop. Feature batches pass through (SpecAugment still applies in
-        training)."""
+        training). A rank's share of a batch keeps its
+        ``whole_token_lens`` for the loss."""
         if "feats" in batch:
             feats = self._maybe_specaug(batch["feats"], batch["feat_lens"],
                                         generator, train)
@@ -186,15 +192,21 @@ class ASRTask:
             feats, feat_lens = self.features(
                 batch["audio"], batch["audio_lens"], batch.get("cmvn_mean"),
                 batch.get("cmvn_std"), generator=generator, train=train)
-        return {"feats": feats, "feat_lens": feat_lens,
-                "tokens": batch["tokens"], "token_lens": batch["token_lens"]}
+        out = {"feats": feats, "feat_lens": feat_lens,
+               "tokens": batch["tokens"], "token_lens": batch["token_lens"]}
+        if "whole_token_lens" in batch:
+            out["whole_token_lens"] = batch["whole_token_lens"]
+        return out
 
     def loss_fn(self, params: dict, batch: dict, generator=None,
                 train: bool = False):
         """-> (scalar loss, metrics). Differentiable w.r.t. ``params``.
         Takes raw-audio batches (features computed inline) or feature
         batches (key 'feats', used as they are: augmentation is
-        ``preprocess``'s job)."""
+        ``preprocess``'s job). A batch with ``whole_token_lens`` is a
+        rank's share of a task's shots: its loss divides by the whole
+        batch's rows and tokens, so the ranks' losses add up to one
+        process's, and its generator carries its rows (``utils.rows``)."""
         if train and generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         if "feats" in batch:
@@ -204,11 +216,13 @@ class ASRTask:
                 batch["audio"], batch["audio_lens"], batch.get("cmvn_mean"),
                 batch.get("cmvn_std"), generator=generator, train=train)
         tokens, token_lens = batch["tokens"], batch["token_lens"]
+        whole = whole_counts(batch)
         if self.arch == "vgg_blstm":
             logits, out_lens = torch.func.functional_call(
                 self.model, params, (feats, feat_lens), {"train": train})
             lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-            loss = self._ctc_loss(lp, out_lens, tokens, token_lens).mean()
+            loss = batch_mean(self._ctc_loss(lp, out_lens, tokens,
+                                             token_lens), whole)
             return loss, {"loss": loss, "ctc_loss": loss}
         tokens_in, _, _ = prepare_decoder_targets(
             tokens.to(torch.int64), token_lens, self.sos_eos_id)
@@ -219,7 +233,7 @@ class ASRTask:
         return joint_ctc_attention_loss(
             outputs, tokens, token_lens, self.sos_eos_id,
             ctc_weight=m.ctc_weight, label_smoothing=m.label_smoothing,
-            ctc_loss_fn=self._ctc_loss)
+            ctc_loss_fn=self._ctc_loss, whole=whole)
 
     # ---------- greedy CTC decode (beam search lives in decode/) ----------
 

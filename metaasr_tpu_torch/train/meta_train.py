@@ -52,8 +52,17 @@ restores the latest checkpoint and ``broadcast_state`` hands the whole
 state (parameters, optimizer state, step, seed, best metric, stale count)
 to every rank, so no rank but rank 0 reads the workdir; the feed goes on
 at the restored step. The CLI's ``--mesh-tasks N`` runs such a group under
-torchrun. The baseline trainers with their dev evaluation are in
-``train/mono.py``.
+torchrun.
+
+``mesh_tasks`` = N below W adds the reference's data axis
+(``parallel.make_mesh``): N task groups of D = W / N ranks, a group
+running M / N tasks (its rows start at global task ``task_offset``).
+Under first order each rank collates and runs k / D of every task's
+support and query shots (``TaskSampler.sample(step, rows=, shots=)``)
+and each inner step sums the group's partial gradients; under second
+order each rank of a group runs the whole shots. The numbers are one
+process's either way. The baseline trainers with their dev evaluation
+are in ``train/mono.py``.
 """
 
 from __future__ import annotations
@@ -95,8 +104,8 @@ from metaasr_tpu_torch.parallel.distributed import (
     barrier,
     broadcast_state,
     from_rank0,
+    make_mesh,
     rank,
-    task_rows,
 )
 from metaasr_tpu_torch.serve.export import (
     beam_config_from_train,
@@ -168,7 +177,7 @@ def to_device(batch: dict, device) -> dict:
 class MetaASRTrainer:
     def __init__(self, cfg: Config, task, accent_datasets: dict,
                  heldout_datasets: dict, tokenizer, workdir: str,
-                 device=None, group=None):
+                 device=None, group=None, mesh_tasks: int | None = None):
         self.device = resolve_device(device)
         if task.device != self.device:
             raise ValueError(f"task runs on {task.device}, trainer on "
@@ -184,9 +193,24 @@ class MetaASRTrainer:
             # so the BLSTM switches to the autograd loop.
             task.require_full_autodiff()
         self.optimizer = make_optimizer(cfg.optimizer, cfg.model.d_model)
-        # under a process group the rank's task rows; only rank 0 writes
+        # under a process group the rank's task group's rows and, on the
+        # data axis under first order, its part of each task's shots; only
+        # rank 0 writes
         self.group = group
-        self.rows = task_rows(cfg.meta.tasks_per_batch, group)
+        self.mesh = make_mesh(group, mesh_tasks)
+        self.rows = self.mesh.task_rows(cfg.meta.tasks_per_batch)
+        data = self.mesh.data
+        self.shots = None
+        if data is not None and cfg.meta.algo != "maml":
+            for knob in ("k_support", "k_query"):
+                k = getattr(cfg.meta, knob)
+                if k % data.size:
+                    raise ValueError(
+                        f"meta.{knob} = {k} does not split over a data axis "
+                        f"of {data.size} ranks (--mesh-tasks "
+                        f"{self.mesh.num_task}); make it a multiple of "
+                        f"{data.size}")
+            self.shots = (data.index, data.size)
         self.rank0 = rank(group) == 0
         self.ckpt = self.logger = None
         if self.rank0:
@@ -251,7 +275,7 @@ class MetaASRTrainer:
             state["params"], meta_batch, fold_in(state["seed"], step),
             inner_scale=self._inner_scale(step),
             widen_scale=self._widen_scale(step), group=self.group,
-            task_offset=self.rows.start)
+            task_offset=self.rows.start, data=self.mesh.data)
         updates, opt_state = self.optimizer.update(grads, state["opt_state"],
                                                    state["params"])
         params = apply_updates(state["params"], updates)
@@ -269,7 +293,8 @@ class MetaASRTrainer:
 
         def produce():
             for step in range(start_step, max_steps):
-                q.put(self.sampler.sample(step, rows=self.rows))
+                q.put(self.sampler.sample(step, rows=self.rows,
+                                          shots=self.shots))
             q.put(None)
 
         threading.Thread(target=produce, daemon=True).start()

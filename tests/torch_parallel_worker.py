@@ -10,7 +10,9 @@ configurations, batches and weights made here from seeds. A ``cli`` job
 runs ``cli.main`` under that group (``tests/test_torch_mesh_tasks.py``)
 and records what the rank trained, wrote and read; a ``mismatch`` job
 hands ``broadcast_state`` states that differ across ranks, and a
-``cli_error`` job records what each rank raised from a run that fails. This module imports
+``cli_error`` job records what each rank raised from a run that fails. A
+``scenario`` job with ``num_task`` N below WORLD runs on the task mesh's
+data axis (``tests/test_torch_mesh_data.py``). This module imports
 torch and the port only: no ``jax``, no ``metaasr_tpu``.
 """
 
@@ -38,6 +40,9 @@ SCENARIOS = {
     "reptile": ({"inner_lr": 0.05, "inner_steps": 2}, True, 1),
     "fomaml_bf16": ({"inner_lr": 0.05, "inner_steps": 2,
                      "grad_dtype": "bfloat16"}, True, 1),
+    # the inner clip's global norm is below every inner gradient's
+    "fomaml_clip": ({"inner_lr": 0.05, "inner_steps": 2,
+                     "inner_clip": 0.05}, True, 1),
     # against the reference: SpecAugment off, dropout 0, dither 0
     "fomaml_plain": ({"inner_lr": 0.05, "inner_steps": 2}, False, 1),
 }
@@ -95,14 +100,22 @@ def _numpy(tree: dict) -> dict:
             for k, v in flatten(tree).items()}
 
 
-def run_scenario(name: str, group=None) -> dict:
+def run_scenario(name: str, group=None, num_task: int | None = None) -> dict:
     """The scenario's meta-steps (``maml_grads`` or ``reptile_grads``, then
-    the trainer's clip + Adam) on this rank's rows -> {"grads": step 1's
-    outer gradient, "metrics": per step, "grad_norm": per step, "params":
-    after the last step, "all_reduces": the group's gradient
-    all-reduces}."""
+    the trainer's clip + Adam) on this rank's part of each step's batch
+    (its task group's tasks of ``num_task`` = N groups, N = WORLD by
+    default, and on the data axis under first order its shots) -> {"grads":
+    step 1's outer gradient, "metrics": per step, "grad_norm": per step,
+    "params": after the last step, "adapted": the parameters step 1's
+    first task's loss was called with, in order (its inner steps', then
+    the query's), "all_reduces": the group's gradient all-reduces,
+    "inner_reduces": the data axis's inner-step all-reduces}."""
     from metaasr_tpu_torch.meta import maml
-    from metaasr_tpu_torch.parallel import reduce_outer, task_rows
+    from metaasr_tpu_torch.parallel import (
+        make_mesh,
+        reduce_inner,
+        reduce_outer,
+    )
     from metaasr_tpu_torch.task import ASRTask
     from metaasr_tpu_torch.train.optimizer import (
         apply_updates,
@@ -113,19 +126,28 @@ def run_scenario(name: str, group=None) -> dict:
     algo, noisy, steps = SCENARIOS[name]
     cfg = small_cfg(noisy)
     task = ASRTask(cfg, VOCAB - 1, device="cpu")
+    meta_cfg = maml.MetaAlgoConfig(**algo)
+    seen = []
+
+    def loss_fn(params, batch, generator, train):
+        if len(seen) <= meta_cfg.inner_steps:
+            seen.append(_numpy(params))
+        return task.loss_fn(params, batch, generator, train)
+
     make = maml.reptile_grads if name == "reptile" else maml.maml_grads
-    grad_fn = make(task.loss_fn, maml.MetaAlgoConfig(**algo),
-                   task.preprocess)
+    grad_fn = make(loss_fn, meta_cfg, task.preprocess)
     opt = make_optimizer(cfg.optimizer, cfg.model.d_model)
     params = task.init_params(0)
     opt_state = opt.init(params)
-    rows = task_rows(M_TASKS, group)
-    before = reduce_outer.all_reduces
+    mesh = make_mesh(group, num_task)
+    rows = mesh.task_rows(M_TASKS)
+    before = reduce_outer.all_reduces, reduce_inner.all_reduces
     out = {"metrics": [], "grad_norm": []}
     for step in range(steps):
-        grads, metrics = grad_fn(params, rows_of(meta_batch(step), rows),
+        local = mesh.local_batch(meta_batch(step), meta_cfg.first_order)
+        grads, metrics = grad_fn(params, rows_of(local, slice(None)),
                                  maml.fold_in(7, step), group=group,
-                                 task_offset=rows.start)
+                                 task_offset=rows.start, data=mesh.data)
         if step == 0:
             out["grads"] = _numpy(grads)
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
@@ -133,7 +155,9 @@ def run_scenario(name: str, group=None) -> dict:
         updates, opt_state = opt.update(grads, opt_state, params)
         params = apply_updates(params, updates)
     out["params"] = _numpy(params)
-    out["all_reduces"] = reduce_outer.all_reduces - before
+    out["adapted"] = seen
+    out["all_reduces"] = reduce_outer.all_reduces - before[0]
+    out["inner_reduces"] = reduce_inner.all_reduces - before[1]
     return out
 
 
@@ -213,10 +237,14 @@ def cli_job(argv: list, audit_root: str | None = None) -> dict:
     state's parameters, step, best metric and stale count; the config it
     trained; the trainer's and the task's device; the file events under
     ``audit_root`` (none recorded without one); the group's gradient
-    all-reduces and broadcasts."""
+    all-reduces (outer and, on the data axis, inner) and broadcasts."""
     from metaasr_tpu_torch import cli
     from metaasr_tpu_torch.config import to_dict
-    from metaasr_tpu_torch.parallel import broadcast_state, reduce_outer
+    from metaasr_tpu_torch.parallel import (
+        broadcast_state,
+        reduce_inner,
+        reduce_outer,
+    )
     from metaasr_tpu_torch.train import meta_train
     from metaasr_tpu_torch.utils.tree import flatten
 
@@ -248,6 +276,7 @@ def cli_job(argv: list, audit_root: str | None = None) -> dict:
     meta_train.broadcast_state = spy_broadcast
     meta_train.MetaASRTrainer.meta_train = spy_meta_train
     calls, reduces = broadcast_state.calls, reduce_outer.all_reduces
+    inner = reduce_inner.all_reduces
     try:
         out["rc"] = cli.main(argv)
     finally:
@@ -257,6 +286,7 @@ def cli_job(argv: list, audit_root: str | None = None) -> dict:
     out["events"] = list(_AUDIT["events"])
     out["broadcast_calls"] = broadcast_state.calls - calls
     out["all_reduces"] = reduce_outer.all_reduces - reduces
+    out["inner_reduces"] = reduce_inner.all_reduces - inner
     return out
 
 
@@ -297,7 +327,8 @@ def main(rank: int, world: int, out: str) -> None:
     results = {}
     for job in jobs:
         if job["kind"] == "scenario":
-            results[job["name"]] = run_scenario(job["name"], group)
+            results[job.get("key", job["name"])] = run_scenario(
+                job["name"], group, job.get("num_task"))
         elif job["kind"] == "cli":
             results[job["name"]] = cli_job(job["argv"], job["audit_root"])
         elif job["kind"] == "mismatch":
